@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives three paths of the port through ``run_config`` on ``cuda``, each
+Drives five paths of the port through ``run_config`` on ``cuda``, each
 MatrixFree + GMG, InnerTolerance 0, OuterTolerance 1e-4, Q1, f32, dt 0.1,
 3 timesteps:
 
@@ -12,25 +12,34 @@ MatrixFree + GMG, InnerTolerance 0, OuterTolerance 1e-4, Q1, f32, dt 0.1,
 * P2: ``irk`` (sequential stage solves; json/irk.json's widths: 3D, q=5,
   refinement 7) — K5, K2, and K3/K4 on one stage at a time;
 * P3: ``irk_batched``, 2D, q=4, refinement 10 (1023^2 DoFs per stage) —
-  K5-2D, K2, K4-2D.
+  K5-2D, K2, K4-2D;
+* P4: ``complex_irk_batched``, 3D, q=5 (3 pairs, 6 V-cycle lanes),
+  refinement 8 (255^3 DoFs per lane) — K5 + K2 pair vmult, K2 maps,
+  K3dg on the 255 level, K3/K4 below, the 12-column GMRES basis;
+* P5: ``complex_irk`` with PRESB (json/complex_irk.json's widths: 3D,
+  q=5, refinement 7) — K5 + K2 vmult, K2 maps, K4 and two 3-lane
+  V-cycles (K3/K4) per preconditioner application.
 
 Phases; any failure exits non-zero:
 
 1. device: a CUDA device must be present (no CPU fallback); prints the
    ``nvidia-smi`` name and power limit;
 2. build: compiles ``dealii_spirk_tpu_torch/csrc`` with nvcc, one process
-   per source;
+   per source, all started together;
 3. kernels: every kernel against its plain torch version on the card at
-   every shape the paths give it (P1 3D q=4, m = 15..127; P2 K5 and K2 at
-   q=5, K3/K4 at q=1, m = 15..127; P3 2D q=4, m = 63..1023) and at
-   degrees 2-4 on small levels, to 1e-5 max|ref|, with CUDA-event times
-   of kernel and plain version at the paths' finest levels;
+   every shape the paths give it and at degrees 2-4 on small levels, to
+   1e-5 max|ref|, with CUDA-event times of kernel, plain version and,
+   where one PyTorch call computes the same function, that call
+   (``library_ms``; held against the plain version, used nowhere in the
+   port) at the paths' finest levels;
 4. per path, the kernel arm: the launch counts (all set to 0 just before
    the run, read just after) must equal what the solve structure implies
    and include every kernel of the path; L2 error < 1e-2;
 5. per path, the plain arm: the same run on the plain torch operators;
-   per-step outer and per-stage inner counts within 1 of the kernel arm,
-   solutions close.
+   per-step outer and per-stage (per-pair) inner counts within 1 of the
+   kernel arm, solutions close;
+6. the mutual oracle: P5's L2 error within 1% of P2's (same q,
+   refinement and tolerances, two different schemes).
 
 Prints the kernel summary as one JSON line, then as its last line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -38,6 +47,7 @@ Prints the kernel summary as one JSON line, then as its last line
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -47,6 +57,11 @@ import numpy as np
 import torch
 
 REL_TOL = 1e-5  # max|kernel - plain| <= REL_TOL * max|plain|: f32, other summation order
+# the library calls pick their own algorithms and summation order (cuDNN's
+# convolutions); they are yardsticks of time, held to 1e-4 max|plain|
+LIB_TOL = 1e-4
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (data sheet)
+F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores (data sheet)
 _COMMON = {
     "FEDegree": 1,
     "TimeStepSize": 0.1,
@@ -66,23 +81,41 @@ PATHS = {
                "IRKStages": 5}, 4),
     "P3": (2, {**_COMMON, "NRefinements": 10, "TimeIntegrationScheme": "irk_batched",
                "IRKStages": 4}, 5),
+    "P4": (3, {**_COMMON, "NRefinements": 8, "TimeIntegrationScheme": "complex_irk_batched",
+               "IRKStages": 5}, 5),
+    "P5": (3, {**_COMMON, "NRefinements": 7, "TimeIntegrationScheme": "complex_irk",
+               "IRKStages": 5}, 4),
 }
+ORACLE = ("P5", "P2", 0.01)  # L2 of the first within this share of the second's
 _ST = "dealii_spirk_tpu/ops/pallas/stencil.py"
+_CS = "dealii_spirk_tpu_torch/csrc/"
 KERNELS = {
-    # LAUNCHES key: (C source, TPU kernel body it replaces)
-    "ms_mix_apply": ("dealii_spirk_tpu_torch/csrc/ms_mix_apply.cu", f"{_ST}:2879"),
-    "stage_mix": ("dealii_spirk_tpu_torch/csrc/stage_mix.cu", f"{_ST}:2749"),
-    "cheb_iter": ("dealii_spirk_tpu_torch/csrc/cheb_iter.cu", f"{_ST}:3196"),
-    "stencil_apply": ("dealii_spirk_tpu_torch/csrc/stencil_apply.cu", f"{_ST}:682"),
-    "stencil_apply_2d": ("dealii_spirk_tpu_torch/csrc/stencil_apply.cu", f"{_ST}:832"),
-    "mass_stiffness_apply": ("dealii_spirk_tpu_torch/csrc/mass_stiffness_apply.cu",
-                             f"{_ST}:762"),
-    "mass_stiffness_apply_2d": ("dealii_spirk_tpu_torch/csrc/mass_stiffness_apply.cu",
-                                f"{_ST}:863"),
+    # LAUNCHES key: (C source, TPU kernel it replaces)
+    "ms_mix_apply": (_CS + "ms_mix_apply.cu", f"{_ST}:2879"),
+    "stage_mix": (_CS + "stage_mix.cu", f"{_ST}:2749"),
+    "cheb_iter": (_CS + "cheb_iter.cu", f"{_ST}:3196"),
+    "cheb_iter_dg": (_CS + "cheb_iter.cu", f"{_ST}:2503"),
+    "stencil_apply": (_CS + "stencil_apply.cu", f"{_ST}:682"),
+    "stencil_apply_2d": (_CS + "stencil_apply.cu", f"{_ST}:832"),
+    "mass_stiffness_apply": (_CS + "mass_stiffness_apply.cu", f"{_ST}:762"),
+    "mass_stiffness_apply_2d": (_CS + "mass_stiffness_apply.cu", f"{_ST}:863"),
 }
-K3D = ("ms_mix_apply", "stage_mix", "cheb_iter", "stencil_apply", "mass_stiffness_apply")
+# field passes each kernel must make (each input read once, each output
+# written once): K1 u -> out; K3 d, r, x, D^-1 -> r', d', x'; K3dg without
+# D^-1; K4 u -> out; K5 u -> M u, K u.  K2 moves q_in + q_out fields.
+PASSES = {
+    "ms_mix_apply": 2,
+    "cheb_iter": 7,
+    "cheb_iter_dg": 6,
+    "stencil_apply": 2,
+    "stencil_apply_2d": 2,
+    "mass_stiffness_apply": 3,
+    "mass_stiffness_apply_2d": 3,
+}
+K3D = ("ms_mix_apply", "stage_mix", "cheb_iter", "cheb_iter_dg", "stencil_apply",
+       "mass_stiffness_apply")
 K2D = ("stencil_apply_2d", "mass_stiffness_apply_2d", "stage_mix")
-VCYCLE_Q1 = ("cheb_iter", "stencil_apply")
+VCYCLE = ("cheb_iter", "stencil_apply")
 # (dim, q, refinement, degree, kernels checked, kernels timed)
 KERNEL_CASES = [
     (3, 4, 4, 1, K3D, ()),
@@ -91,15 +124,26 @@ KERNEL_CASES = [
     (3, 4, 7, 1, K3D, ("ms_mix_apply", "stage_mix", "cheb_iter", "stencil_apply")),  # P1
     (3, 5, 7, 1, ("mass_stiffness_apply", "stage_mix"),
      ("mass_stiffness_apply", "stage_mix")),  # P2's vmult and mixes
-    (3, 1, 4, 1, VCYCLE_Q1, ()),  # P2's one-stage V-cycle, on every smoothed level
-    (3, 1, 5, 1, VCYCLE_Q1, ()),
-    (3, 1, 6, 1, VCYCLE_Q1, ()),
-    (3, 1, 7, 1, VCYCLE_Q1, VCYCLE_Q1),
+    (3, 1, 4, 1, VCYCLE, ()),  # P2's one-stage V-cycle, on every smoothed level
+    (3, 1, 5, 1, VCYCLE, ()),
+    (3, 1, 6, 1, VCYCLE, ()),
+    (3, 1, 7, 1, VCYCLE, VCYCLE),
     (2, 4, 6, 1, K2D, ()),  # P3's smoothed levels
     (2, 4, 7, 1, K2D, ()),
     (2, 4, 8, 1, K2D, ()),
     (2, 4, 9, 1, K2D, ()),
     (2, 4, 10, 1, K2D, K2D),  # P3's finest level
+    (3, 6, 4, 1, VCYCLE, ()),  # P4's six-lane V-cycle below its finest level
+    (3, 6, 5, 1, VCYCLE, ()),
+    (3, 6, 6, 1, VCYCLE, ()),
+    (3, 6, 7, 1, VCYCLE + ("mass_stiffness_apply", "stage_mix"), ()),  # + P5's vmult
+    (3, 6, 8, 1, ("cheb_iter_dg", "stencil_apply", "mass_stiffness_apply", "stage_mix"),
+     ("cheb_iter_dg", "stencil_apply", "mass_stiffness_apply")),  # P4's finest level
+    (3, 3, 8, 1, ("cheb_iter_dg",), ()),
+    (3, 3, 4, 1, VCYCLE, ()),  # P5's three-lane PRESB V-cycles and M x0
+    (3, 3, 5, 1, VCYCLE, ()),
+    (3, 3, 6, 1, VCYCLE, ()),
+    (3, 3, 7, 1, VCYCLE, ()),
     # degrees 2-4, which operator_mode also sends to the kernels
     (3, 4, 5, 2, K3D, ()),
     (3, 4, 4, 3, K3D, ()),
@@ -108,13 +152,21 @@ KERNEL_CASES = [
     (2, 4, 6, 3, K2D, ()),
     (2, 4, 6, 4, K2D, ()),
 ]
+# K2 at the complex maps' shapes: (dim, q_in, q_out, refinement, timed) —
+# T^-1 (2 n2 x q), T (q x 2 n2), the vmult's 2x2 pair blocks (2 n2 x 2 n2)
+MIX_CASES = [
+    (3, 5, 6, 8, True),  # P4
+    (3, 6, 5, 8, False),
+    (3, 5, 6, 7, False),  # P5
+    (3, 6, 5, 7, False),
+]
 
 
 def say(*args) -> None:
     print(*args, flush=True)
 
 
-def cuda_ms(fn, reps: int = 50) -> float:
+def cuda_ms(fn, reps: int = 20) -> float:
     """Mean milliseconds per call from CUDA events, after a warm-up."""
     for _ in range(3):
         fn()
@@ -128,9 +180,73 @@ def cuda_ms(fn, reps: int = 50) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound(name: str, q_in: int, q_out: int, points: int, p: int, dim: int) -> tuple[float, str]:
+    """(ms, what binds) of the least time the H100 could take: the larger
+    of the bytes the function must move over the HBM rate and its f32
+    operations over the f32 peak.  Operations per output point of one
+    stage, nb = 2p + 1 taps per axis: the shifted 3D apply 14 nb (z pass
+    two sums, y pass C and D, x pass one sum of two products), K5 16 nb,
+    K1 K5's plus 2 q for the mix, the Chebyshev update 8 more, K3dg's
+    diagonal 10 more; 2D apply and K5-2D 10 nb; K2 2 q_in."""
+    nb = 2 * p + 1
+    if name == "stage_mix":
+        nbytes = 4 * (q_in + q_out) * points
+        flops = 2 * q_in * q_out * points
+    else:
+        nbytes = 4 * PASSES[name] * q_in * points
+        per_point = {
+            "ms_mix_apply": 16 * nb + 2 * q_in,
+            "cheb_iter": 14 * nb + 8,
+            "cheb_iter_dg": 14 * nb + 18,
+            "stencil_apply": 14 * nb,
+            "mass_stiffness_apply": 16 * nb,
+            "stencil_apply_2d": 10 * nb,
+            "mass_stiffness_apply_2d": 10 * nb,
+        }[name]
+        flops = per_point * q_in * points
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _outer(vs):
+    out = vs[0]
+    for v in vs[1:]:
+        out = torch.tensordot(out, v, dims=0)
+    return out
+
+
+def library_calls(ops, q: int, dim: int, a, b, u, mat) -> dict:
+    """The one PyTorch call that computes each kernel's function, where
+    there is one: K2 is ``mat @ W``; K4 and K5 at p = 1 a grouped
+    convolution with a 3^dim tensor-product weight per stage (zero
+    padding; two output channels per stage for K5).  Timed only."""
+    F = torch.nn.functional
+    calls = {"stage_mix": lambda: (mat @ u.reshape(q, -1)).view(u.shape)}
+    if ops.p != 1:
+        return calls
+    # the 3-tap rows of a Q1 level are the same on every row, boundary rows
+    # included: the band's zero weights there are the zero padding
+    wm, wk = ops.mass_band[:, ops.m // 2], ops.stiff_band[:, ops.m // 2]
+    mass = _outer([wm] * dim)
+    stiff = sum(_outer([wk if j == i else wm for j in range(dim)]) for i in range(dim))
+    conv = F.conv3d if dim == 3 else F.conv2d
+    shifted = (a.reshape((q,) + (1,) * dim) * mass + b * stiff)[:, None].contiguous()
+    ms_w = torch.stack([mass, stiff]).repeat(q, *([1] * dim))[:, None].contiguous()
+    sfx = "" if dim == 3 else "_2d"
+    calls["stencil_apply" + sfx] = lambda: conv(u[None], shifted, padding=1, groups=q)[0]
+
+    def ms():
+        out = conv(u[None], ms_w, padding=1, groups=q)[0]
+        return out[0::2], out[1::2]
+
+    calls["mass_stiffness_apply" + sfx] = ms
+    return calls
+
+
 def kernel_cases(ops, q: int, dim: int, device, seed: int):
-    """(LAUNCHES key, kernel call, plain call) at one level: the same
-    numpy inputs for both."""
+    """(LAUNCHES key, kernel call, plain call) at one level, and the
+    library calls of ``library_calls``: the same numpy inputs for all."""
     from dealii_spirk_tpu_torch.ops.cuda import stencil as st
 
     rng = np.random.default_rng(seed)
@@ -146,7 +262,7 @@ def kernel_cases(ops, q: int, dim: int, device, seed: int):
     a, c1, c2 = vec(0.5, 2.0), vec(0.2, 0.9), vec(0.1, 0.5)
     b = 0.1
     u, d, r, x = field(), field(), field(), field()
-    invd = field(0.5, 1.5)
+    invd = field(0.5, 1.5) if dim == 3 else None
     ainv, mat = vec(-2.0, 2.0, (q, q)), vec(-1.0, 1.0, (q, q))
     sfx = "" if dim == 3 else "_2d"
     cases = [
@@ -162,8 +278,10 @@ def kernel_cases(ops, q: int, dim: int, device, seed: int):
              lambda: st.ms_mix_apply_ref(ops, ainv, b, u)),
             ("cheb_iter", lambda: st.cheb_iter(ops, a, b, c1, c2, d, r, x, invd),
              lambda: st.cheb_iter_ref(ops, a, b, c1, c2, d, r, x, invd)),
+            ("cheb_iter_dg", lambda: st.cheb_iter_dg(ops, a, b, c1, c2, d, r, x),
+             lambda: st.cheb_iter_dg_ref(ops, a, b, c1, c2, d, r, x)),
         ]
-    return cases
+    return cases, library_calls(ops, q, dim, a, b, u, mat)
 
 
 def max_err(got, want) -> list[tuple[float, float]]:
@@ -174,35 +292,66 @@ def max_err(got, want) -> list[tuple[float, float]]:
     return [(float((g - w).abs().max()), float(w.abs().max())) for g, w in zip(got, want)]
 
 
+def _hold(label: str, got, want, tol: float) -> float:
+    errs = max_err(got, want)
+    ok = all(e <= tol * sc for e, sc in errs)
+    say(f"{label}: max|err|=" + " / ".join(f"{e:.3e}" for e, _ in errs) + " max|ref|="
+        + " / ".join(f"{sc:.3e}" for _, sc in errs) + f" tol={tol:g}*max|ref| "
+        + ("ok" if ok else "FAIL"))
+    if not ok:
+        raise AssertionError(f"{label} disagrees with the plain version")
+    return max(e for e, _ in errs)
+
+
+def _time(report, name, at, kern, plain, lib, bnd) -> None:
+    ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
+    lib_ms = cuda_ms(lib) if lib is not None else None
+    report[name]["times"].append({"at": at, "ms": ms, "plain_ms": plain_ms,
+                                  "library_ms": lib_ms, "bound_ms": bnd[0],
+                                  "bound_by": bnd[1]})
+    say(f"  time at {at}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms, library "
+        + ("none" if lib_ms is None else f"{lib_ms:.4f} ms")
+        + f", bound {bnd[0]:.4f} ms ({bnd[1]})")
+
+
 def check_kernels(device) -> dict:
-    """Phase 3: every kernel against its plain version (KERNEL_CASES)."""
+    """Phase 3: every kernel against its plain version (KERNEL_CASES,
+    MIX_CASES)."""
     from dealii_spirk_tpu_torch.fem.grid import make_level
+    from dealii_spirk_tpu_torch.ops.cuda import stencil as st
     from dealii_spirk_tpu_torch.ops.mass_laplace import level_ops
 
     report = {name: {"max_abs_err": 0.0, "times": []} for name in KERNELS}
     for dim, q, ref, p, names, timed in KERNEL_CASES:
         ops = level_ops(make_level(ref, p), torch.float32, device)
-        for name, kern, plain in kernel_cases(ops, q, dim, device, seed=ref * 10 + p + q):
+        cases, libs = kernel_cases(ops, q, dim, device, seed=ref * 10 + p + q)
+        for name, kern, plain in cases:
             if name not in names:
                 continue
-            got = kern()
-            want = plain()
-            errs = max_err(got, want)
-            ok = all(e <= REL_TOL * sc for e, sc in errs)
-            say(f"kernel {name:24s} {dim}D p={p} m={ops.m:4d} q={q}: max|err|="
-                + " / ".join(f"{e:.3e}" for e, _ in errs) + " max|ref|="
-                + " / ".join(f"{sc:.3e}" for _, sc in errs)
-                + f" tol={REL_TOL:g}*max|ref| {'ok' if ok else 'FAIL'}")
-            err = max(e for e, _ in errs)
-            if not ok:
-                raise AssertionError(f"{name} disagrees with its plain version at m={ops.m}")
+            at = f"{dim}D p={p} m={ops.m} q={q}"
+            err = _hold(f"kernel {name:24s} {at}", kern(), plain(), REL_TOL)
             report[name]["max_abs_err"] = max(report[name]["max_abs_err"], err)
             if name in timed:
-                ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
-                report[name]["times"].append(
-                    {"at": f"{dim}D q={q} m={ops.m}", "ms": ms, "plain_ms": plain_ms})
-                say(f"  time at {dim}D m={ops.m}, q={q}: kernel {ms:.4f} ms, "
-                    f"plain torch {plain_ms:.4f} ms")
+                lib = libs.get(name)
+                if lib is not None:
+                    _hold(f"  library call for {name}", lib(), plain(), LIB_TOL)
+                _time(report, name, at, kern, plain, lib,
+                      bound(name, q, q, ops.m**dim, p, dim))
+        del cases, libs
+        torch.cuda.empty_cache()
+    for dim, qi, qo, ref, timed in MIX_CASES:
+        m = make_level(ref, 1).m
+        rng = np.random.default_rng(ref + qi + 10 * qo)
+        W = torch.as_tensor(rng.uniform(-1, 1, (qi,) + (m,) * dim), dtype=torch.float32,
+                            device=device)
+        mat = torch.as_tensor(rng.uniform(-1, 1, (qo, qi)), dtype=torch.float32, device=device)
+        at = f"{dim}D m={m} ({qo}x{qi})"
+        kern, plain = (lambda: st.stage_mix(mat, W)), (lambda: st.stage_mix_ref(mat, W))
+        err = _hold(f"kernel {'stage_mix':24s} {at}", kern(), plain(), REL_TOL)
+        report["stage_mix"]["max_abs_err"] = max(report["stage_mix"]["max_abs_err"], err)
+        if timed:
+            _time(report, "stage_mix", at, kern, plain, plain,
+                  bound("stage_mix", qi, qo, m**dim, 1, dim))
     return report
 
 
@@ -215,22 +364,58 @@ def run_path(device, name: str, kernels: bool):
     return run_config(params, device=device, verbose=False, kernels=kernels)
 
 
+def _smoother_launches(scheme, n_vcycle: int, want: dict) -> None:
+    """Per V-cycle, on each smoothed level: 3D two smooths of 4 fused
+    Chebyshev steps (K3, or K3dg on ``cheb_diag_level`` levels) plus the
+    post-smooth entry and restriction residuals (K4); 2D the 8 Chebyshev
+    steps, each one K4-2D apply, plus those two residuals."""
+    from dealii_spirk_tpu_torch.solvers.gmg import cheb_diag_level
+
+    for ops in scheme.gmg.level_ops[1:]:
+        if scheme.dim == 3:
+            key = "cheb_iter_dg" if cheb_diag_level(ops.m, 3) else "cheb_iter"
+            want[key] += 8 * n_vcycle
+            want["stencil_apply"] += 2 * n_vcycle
+        else:
+            want["stencil_apply_2d"] += 10 * n_vcycle
+
+
 def expected_launches(out) -> dict:
     """Launch counts the solve structure implies.  Per GMRES solve: one
     preconditioner application at the start, one vmult and one
-    application per iteration, one of each per restart.  The vmult is K1
-    (3D irk_batched) or K5 + a K2 mix; an application is a K2 mix, the
-    V-cycles (one stage-batched, or one per stage for `irk`) and a K2 mix.
-    Per V-cycle, on each of the L smoothed levels: 3D two smooths of 4
-    fused Chebyshev steps (K3) plus the post-smooth entry and restriction
-    residuals (K4); 2D the 8 Chebyshev steps, each one K4-2D apply, plus
-    those two residuals."""
+    application per iteration, one of each per restart; batched over the
+    complex pairs, per iteration of the slowest live lane ("sweeps").
+
+    * ``irk(_batched)``: the vmult is K1 (3D irk_batched) or K5 + a K2
+      mix; an application is a K2 mix, the V-cycles (one stage-batched,
+      or one per stage for ``irk``) and a K2 mix;
+    * ``complex_irk(_batched)``: the vmult is K5 + a K2 mix of the pair
+      blocks; the T^-1 and T maps are one K2 each per step; an
+      application is one 2 n2-lane V-cycle (batched) or PRESB's two n2-lane
+      V-cycles and one K4 (``M x0``)."""
     from dealii_spirk_tpu_torch.ops.cuda import stencil as st
 
     scheme = out["scheme"]
-    L = len(scheme.gmg.level_ops) - 1
-    per_app = scheme.q if scheme.sequential else 1
+    want = dict.fromkeys(st.LAUNCHES, 0)
     n_vmult = n_app = n_vcycle = 0
+    if hasattr(scheme, "n_pairs"):
+        for s in scheme.step_log:
+            vmults = s["n_sweeps"] + s["n_restarts"]
+            if s["n_restarts"] == 0 and (
+                s["n_sweeps"] != max(s["n_outer_pair"])
+                or s["n_inner_pair"] != [[1 + n, 1 + n] for n in s["n_outer_pair"]]
+            ):
+                raise AssertionError(f"pair counts off the GMRES structure: {s}")
+            n_vmult += vmults
+            n_app += vmults + 1
+        n_vcycle = n_app if scheme.batched else 2 * n_app
+        want["mass_stiffness_apply"] = n_vmult
+        want["stage_mix"] = n_vmult + 2 * len(scheme.step_log)
+        if not scheme.batched:
+            want["stencil_apply"] = n_app
+        _smoother_launches(scheme, n_vcycle, want)
+        return want
+    per_app = scheme.q if scheme.sequential else 1
     for s in scheme.step_log:
         apps = s["n_outer"] + 1 + s["n_restarts"]
         if s["n_inner"] != per_app * apps:
@@ -238,19 +423,23 @@ def expected_launches(out) -> dict:
         n_vmult += s["n_outer"] + s["n_restarts"]
         n_app += apps
         n_vcycle += s["n_inner"]
-    want = dict.fromkeys(st.LAUNCHES, 0)
     if scheme.dim == 3 and not scheme.sequential:
         want["ms_mix_apply"] = n_vmult
         want["stage_mix"] = 2 * n_app
     else:
         want["mass_stiffness_apply" + ("" if scheme.dim == 3 else "_2d")] = n_vmult
         want["stage_mix"] = n_vmult + 2 * n_app
-    if scheme.dim == 3:
-        want["cheb_iter"] = 8 * L * n_vcycle
-        want["stencil_apply"] = 2 * L * n_vcycle
-    else:
-        want["stencil_apply_2d"] = 10 * L * n_vcycle
+    _smoother_launches(scheme, n_vcycle, want)
     return want
+
+
+def _record(out) -> dict:
+    """What the comparisons need of a run, without the scheme's state
+    (the GMG levels and preconditioner: GBs at refinement 8)."""
+    return {k: out[k] for k in ("u", "error_L2", "error_Linf", "step_seconds")} | {
+        "step_log": out["scheme"].step_log,
+        "pairs": hasattr(out["scheme"], "n_pairs"),
+    }
 
 
 def kernel_arm(device, name: str):
@@ -266,11 +455,11 @@ def kernel_arm(device, name: str):
     say(f"{name} (kernels): {out['n_timesteps']} steps, smoothed levels L={L} "
         f"(m = {[o.m for o in scheme.gmg.level_ops[1:]]}, coarse m={scheme.gmg.level_ops[0].m})")
     for i, s in enumerate(scheme.step_log, 1):
-        say(f"  step {i}: n_outer={s['n_outer']} n_inner={s['n_inner']} "
-            f"per stage {s['n_inner_stage']} restarts={s['n_restarts']}")
+        say(f"  step {i}: {s}")
     say(f"  step times (steps >= 2): {[f'{t * 1e3:.3f} ms' for t in out['step_seconds']]}")
     say(f"  L2 error {out['error_L2']:.6e}, Linf error {out['error_Linf']:.6e}")
     say(f"  launches: {launches}")
+    say(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if not (out["error_L2"] < 1e-2 and np.isfinite(out["error_Linf"])):
         raise AssertionError(f"{name} solution error off: L2={out['error_L2']}")
     if L != PATHS[name][2]:
@@ -283,22 +472,27 @@ def kernel_arm(device, name: str):
     missing = [k for k in path_kernels if launches[k] == 0]
     if missing or not path_kernels:
         raise AssertionError(f"{name}: kernels never launched on the path: {missing}")
-    return out, launches
+    return _record(out), launches
 
 
-def plain_arm(device, name: str, kern_out):
-    """Phase 5: the plain torch arm; per-step outer and per-stage inner
-    counts within 1, solutions close."""
-    out = run_path(device, name, kernels=False)
+def _counts(s: dict, pairs: bool) -> list[int]:
+    if pairs:
+        return list(s["n_outer_pair"]) + [n for lane in s["n_inner_pair"] for n in lane]
+    return [s["n_outer"]] + list(s["n_inner_stage"])
+
+
+def plain_arm(device, name: str, kern: dict) -> dict:
+    """Phase 5: the plain torch arm; per-step outer and per-stage
+    (per-pair) inner counts within 1, solutions close."""
+    out = _record(run_path(device, name, kernels=False))
     say(f"{name} (plain torch):")
-    for i, (sk, sp) in enumerate(zip(kern_out["scheme"].step_log, out["scheme"].step_log), 1):
-        say(f"  step {i}: n_outer {sk['n_outer']} (kernels) vs {sp['n_outer']} (plain), "
-            f"per-stage n_inner {sk['n_inner_stage']} vs {sp['n_inner_stage']}")
-        d_inner = max(abs(a - b) for a, b in zip(sk["n_inner_stage"], sp["n_inner_stage"]))
-        if abs(sk["n_outer"] - sp["n_outer"]) > 1 or d_inner > 1:
+    for i, (sk, sp) in enumerate(zip(kern["step_log"], out["step_log"]), 1):
+        ck, cp = _counts(sk, kern["pairs"]), _counts(sp, out["pairs"])
+        say(f"  step {i}: counts {ck} (kernels) vs {cp} (plain)")
+        if len(ck) != len(cp) or max(abs(a - b) for a, b in zip(ck, cp)) > 1:
             raise AssertionError(f"{name}: kernel and plain arms' counts differ by more than 1")
-    du = float((kern_out["u"] - out["u"]).abs().max() / out["u"].abs().max())
-    say(f"  L2 error {out['error_L2']:.6e} (plain) vs {kern_out['error_L2']:.6e} (kernels); "
+    du = float((kern["u"] - out["u"]).abs().max() / out["u"].abs().max())
+    say(f"  L2 error {out['error_L2']:.6e} (plain) vs {kern['error_L2']:.6e} (kernels); "
         f"max|u_k - u_p| / max|u_p| = {du:.3e} (tol 1e-3)")
     if du > 1e-3:
         raise AssertionError(f"{name}: kernel and plain arms' solutions differ")
@@ -329,31 +523,43 @@ def main() -> int:
             say(f"  ptxas {entry}: {line.split(':', 1)[-1].strip()}")
 
     report = check_kernels(device)
-    launches = {}
+    launches, l2 = {}, {}
     for name in PATHS:
-        kern_out, launches[name] = kernel_arm(device, name)
-        plain_out = plain_arm(device, name, kern_out)
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        kern, launches[name] = kernel_arm(device, name)
+        gc.collect()
+        torch.cuda.empty_cache()
+        plain = plain_arm(device, name, kern)
+        l2[name] = kern["error_L2"]
         say(f"{name} per-step ms (steps >= 2) on {smi}: kernels "
-            f"{[round(t * 1e3, 3) for t in kern_out['step_seconds']]}, plain "
-            f"{[round(t * 1e3, 3) for t in plain_out['step_seconds']]}")
+            f"{[round(t * 1e3, 3) for t in kern['step_seconds']]}, plain "
+            f"{[round(t * 1e3, 3) for t in plain['step_seconds']]}; "
+            f"both arms {time.perf_counter() - t0:.1f} s")
+        del kern, plain
+        gc.collect()
+        torch.cuda.empty_cache()
+    a, b, share = ORACLE
+    rel = abs(l2[a] - l2[b]) / l2[b]
+    say(f"mutual oracle: {a} L2 {l2[a]:.6e} vs {b} L2 {l2[b]:.6e}: relative {rel:.3e} "
+        f"(tol {share:g})")
+    if rel > share:
+        raise AssertionError(f"{a} and {b} disagree on the error")
 
-    summary = {
-        "kernels": [
-            {
-                "name": name,
-                "route": "cuda",
-                "source": src,
-                "replaces": replaces,
-                "launches": sum(by_path[name] for by_path in launches.values()),
-                "launches_by_path": {p: by_path[name] for p, by_path in launches.items()},
-                "max_abs_err": report[name]["max_abs_err"],
-                "ms": report[name]["times"][0]["ms"],
-                "plain_ms": report[name]["times"][0]["plain_ms"],
-                "times": report[name]["times"],
-            }
-            for name, (src, replaces) in KERNELS.items()
-        ]
-    }
+    summary = {"kernels": []}
+    for name, (src, replaces) in KERNELS.items():
+        first = report[name]["times"][0]
+        summary["kernels"].append({
+            "name": name,
+            "route": "cuda",
+            "source": src,
+            "replaces": replaces,
+            "launches": sum(by_path[name] for by_path in launches.values()),
+            "launches_by_path": {p: by_path[name] for p, by_path in launches.items()},
+            "max_abs_err": report[name]["max_abs_err"],
+            **{k: first[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "times": report[name]["times"],
+        })
     say(json.dumps(summary))
     say(json.dumps({
         "ok": True,

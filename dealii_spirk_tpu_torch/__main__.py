@@ -13,18 +13,28 @@ import argparse
 import sys
 
 from .config import Parameters
+from .problem import require_device
 from .runner import run_config
 from .utils.table import ConvergenceTable
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="dealii_spirk_tpu_torch")
     parser.add_argument("--dim", type=int, default=3, choices=(2, 3))
     parser.add_argument(
-        "--device", default="cpu", help="torch device to run on, e.g. cpu or cuda"
+        "--device", default="cuda", help="torch device to run on: cuda (default) or cpu"
     )
     parser.add_argument("configs", nargs="+", help="JSON parameter files")
+    return parser
+
+
+def main(argv=None) -> int:
+    parser = build_parser()
     args = parser.parse_args(argv)
+    try:
+        require_device(args.device)
+    except RuntimeError as err:
+        parser.error(str(err))
 
     table = ConvergenceTable()
     for path in args.configs:

@@ -39,6 +39,8 @@ SIGNATURES = {
     "spirk_mass_stiffness_apply_2d": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # d, r, x, invd, r_out, d_out, x_out, mband, kband, w, q, m, p, stream
     "spirk_cheb_iter": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # d, r, x, mdiag, kdiag, r_out, d_out, x_out, mband, kband, w, q, m, p, stream
+    "spirk_cheb_iter_dg": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # u, out, mband, kband, mw, q, m, p, stream
     "spirk_ms_mix_apply": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # W, out, mat, q_out, q_in, n, stream

@@ -29,6 +29,9 @@ block counts under ``<key>_2d``), with the Pallas kernels they replace
 * K2 ``stage_mix`` — ``stage_mix_canon``: the T / T^-1 basis changes and
   the A^-1 mix of K5's ``M u``;
 * K3 ``cheb_iter`` — ``fused_cheb_iter_canon``: one 3D Chebyshev step;
+* K3dg ``cheb_iter_dg`` — ``fused_cheb_iter_canon`` with ``diag_tables``
+  (``_fused_cheb_canon_dg``): K3 with the Jacobi diagonal rebuilt per
+  point from the level's 1D diagonals, so no D^-1 field is read;
 * K4 ``stencil_apply`` — ``fused_stencil_apply_canon``: (a_i M + b K) u_i,
   3D and 2D (``_make_kernel_2d``);
 * K5 ``mass_stiffness_apply`` — ``fused_mass_stiffness_apply_canon`` and
@@ -55,6 +58,7 @@ LAUNCHES = {
     "ms_mix_apply": 0,
     "stage_mix": 0,
     "cheb_iter": 0,
+    "cheb_iter_dg": 0,
     "stencil_apply": 0,
     "stencil_apply_2d": 0,
     "mass_stiffness_apply": 0,
@@ -82,17 +86,40 @@ def mass_stiffness_apply_ref(ops: LevelOps, u: torch.Tensor):
     return apply_mass_stiffness_batched(ops, u, u.ndim - 1)
 
 
-def cheb_chain(apply, c1, c2, d, r, x, invd):
+def cheb_chain(apply, jacobi, c1, c2, d, r, x):
     """One Chebyshev step as an apply and an elementwise chain:
-    r' = r - apply(d); d' = c1_i d + c2_i invd r'; x' = x + d'."""
+    r' = r - apply(d); d' = c1_i d + c2_i jacobi(r'); x' = x + d'."""
     r_new = r - apply(d)
-    d_new = per_stage(c1, d) * d + per_stage(c2, d) * (invd * r_new)
+    d_new = per_stage(c1, d) * d + per_stage(c2, d) * jacobi(r_new)
     return r_new, d_new, x + d_new
 
 
 def cheb_iter_ref(ops: LevelOps, a, b, c1, c2, d, r, x, invd):
     """r' = r - (a_i M + b K) d; d' = c1_i d + c2_i invd r'; x' = x + d'."""
-    return cheb_chain(lambda u: stencil_apply_ref(ops, a, b, u), c1, c2, d, r, x, invd)
+    return cheb_chain(
+        lambda u: stencil_apply_ref(ops, a, b, u), lambda t: invd * t, c1, c2, d, r, x
+    )
+
+
+def cheb_diag(ops: LevelOps, a, b, like: torch.Tensor) -> torch.Tensor:
+    """The (q, m, m, m) Jacobi diagonal of a_i M + b K from the level's 1D
+    diagonals, in the JAX package's order (``_dg_z``):
+    (a zm ym + b (zk ym + zm yk)) xm + (b zm ym) xk; ``like`` (a stage
+    block) gives the stage count."""
+    dm, dk = ops.mass_diag, ops.stiff_diag
+    zm, zk = dm[:, None, None], dk[:, None, None]
+    ym, yk = dm[None, :, None], dk[None, :, None]
+    zmym = zm * ym
+    aq = per_stage(a, like)
+    return (aq * zmym + b * (zk * ym + zm * yk)) * dm + (b * zmym) * dk
+
+
+def cheb_iter_dg_ref(ops: LevelOps, a, b, c1, c2, d, r, x):
+    """K3's step with D^-1 r' computed as r' / diag (``cheb_diag``)."""
+    diag = cheb_diag(ops, a, b, d)
+    return cheb_chain(
+        lambda u: stencil_apply_ref(ops, a, b, u), lambda t: t / diag, c1, c2, d, r, x
+    )
 
 
 def stage_mix_ref(mat: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
@@ -219,6 +246,29 @@ def cheb_iter(ops: LevelOps, a, b, c1, c2, d, r, x, invd):
         ops.mass_band, ops.stiff_band, w, q, m, p,
     )
     LAUNCHES["cheb_iter"] += 1
+    return r_out, d_out, x_out
+
+
+def cheb_iter_dg(ops: LevelOps, a, b, c1, c2, d, r, x):
+    """K3dg: K3's step with the Jacobi diagonal rebuilt per point from
+    ``ops.mass_diag`` / ``ops.stiff_diag`` (no D^-1 field); returns new
+    tensors (r', d', x').  3D only."""
+    if _on_cpu(d, r, x, ops.mass_band):
+        return cheb_iter_dg_ref(ops, a, b, c1, c2, d, r, x)
+    if d.ndim != 4:
+        raise ValueError("cheb_iter_dg takes 3D stage blocks (q, m, m, m)")
+    q, m, p = _check_block(ops, d, "d")
+    for t, name in ((r, "r"), (x, "x")):
+        _check_field(t, d.shape, name)
+    for t in (ops.mass_diag, ops.stiff_diag):
+        _check_field(t, (m,), "1D diagonal")
+    r_out, d_out, x_out = (torch.empty_like(d) for _ in range(3))
+    w = _coefs(q, d.device, a, b, c1, c2)
+    _launch(
+        "spirk_cheb_iter_dg", d, r, x, ops.mass_diag, ops.stiff_diag, r_out, d_out, x_out,
+        ops.mass_band, ops.stiff_band, w, q, m, p,
+    )
+    LAUNCHES["cheb_iter_dg"] += 1
     return r_out, d_out, x_out
 
 

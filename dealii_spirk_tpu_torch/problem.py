@@ -22,6 +22,19 @@ from .fem.grid import Space, make_space
 from .ops.banded import apply_dense_1d
 
 
+def require_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device must exist (the
+    port runs on the card unless the caller asks for the CPU, and never
+    falls back to it)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available: the port runs on the GPU by default; "
+            "pass device='cpu' (CLI: --device cpu) to run on the CPU"
+        )
+    return dev
+
+
 def _outer(vecs):
     out = vecs[0]
     for v in vecs[1:]:
@@ -32,8 +45,8 @@ def _outer(vecs):
 class HeatProblem:
     """Device-resident problem data for one (dim, degree, refinement)."""
 
-    def __init__(self, params: Parameters, device="cpu"):
-        self.device = torch.device(device)
+    def __init__(self, params: Parameters, device="cuda"):
+        self.device = require_device(device)
         self.space: Space = make_space(
             params.dim, params.fe_degree, params.n_refinements
         )

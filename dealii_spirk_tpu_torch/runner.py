@@ -20,13 +20,14 @@ def run_config(
     params: Parameters,
     table: ConvergenceTable | None = None,
     *,
-    device="cpu",
+    device="cuda",
     verbose: bool = True,
     **scheme_options,
 ) -> dict:
-    """Run one configuration on ``device``; returns a summary dict and
-    fills ``table``.  ``scheme_options`` go to the scheme's constructor
-    (``kernels``, ``tables``, ``start`` for ``irk`` and ``irk_batched``)."""
+    """Run one configuration on ``device`` (the GPU unless asked for
+    ``"cpu"``; raises when there is no CUDA device); returns a summary
+    dict and fills ``table``.  ``scheme_options`` go to the scheme's
+    constructor (``kernels``, ``tables``, ``start``)."""
     if table is None:
         table = ConvergenceTable()
     say = print if verbose else (lambda *a, **k: None)

@@ -1,8 +1,9 @@
 """Time-integration schemes (the reference's L5 layer, main.cc:450-2937).
 
-Port of ``dealii_spirk_tpu/schemes``.  ``irk`` and ``irk_batched`` are
-ported so far; the other six schemes raise ``NotImplementedError`` naming
-the ROADMAP queue item that ports them.
+Port of ``dealii_spirk_tpu/schemes``.  ``irk``, ``irk_batched``,
+``complex_irk`` and ``complex_irk_batched`` are ported so far; the other
+four schemes raise ``NotImplementedError`` naming the ROADMAP queue item
+that ports them.
 """
 
 from __future__ import annotations
@@ -13,21 +14,24 @@ from ..problem import HeatProblem
 _NOT_YET = {
     "spirk": "ROADMAP Queue 1 items 6 and 13",
     "ost": "ROADMAP Queue 1 item 10",
-    "complex_irk": "ROADMAP Queue 1 item 9",
-    "complex_irk_batched": "ROADMAP Queue 1 item 9",
-    "complex_spirk": "ROADMAP Queue 1 items 9 and 13",
-    "complex_spirk_batched": "ROADMAP Queue 1 items 9 and 13",
+    "complex_spirk": "ROADMAP Queue 1 item 13",
+    "complex_spirk_batched": "ROADMAP Queue 1 item 13",
 }
 
 
 def make_scheme(problem: HeatProblem, params: Parameters, **options):
-    """The scheme object of ``params``; ``options`` go to its constructor
-    (for ``irk`` and ``irk_batched``: ``kernels``, ``tables``, ``start``)."""
+    """The scheme object of ``params`` on the problem's device; ``options``
+    go to its constructor (``kernels``, ``tables``, ``start``: see
+    ``base.RadauScheme``)."""
     name = params.time_integration_scheme
     if name in ("irk", "irk_batched"):
         from .irk import IRK
 
         return IRK(problem, params, **options)
+    if name in ("complex_irk", "complex_irk_batched"):
+        from .complex_irk import ComplexIRK
+
+        return ComplexIRK(problem, params, **options)
     if name in _NOT_YET:
         raise NotImplementedError(
             f"scheme {name!r} is not ported yet: {_NOT_YET[name]}"

@@ -10,14 +10,22 @@ normalised per timestep.
 
 from __future__ import annotations
 
+import warnings
+
 import numpy as np
 import torch
 
 from ..config import Parameters
 from ..fem.functions import rhs_time_factor
+from ..ops.cuda import stencil as st
+from ..ops.mass_laplace import apply_stiffness
 from ..problem import HeatProblem
 from ..solvers.gmg import build_gmg_data
+from ..solvers.krylov import COMPACT_BASIS, COMPACT_GRID_DOFS
+from ..tables import IRKTables, irk_tables
 from ..utils.timer import PhaseTimers
+
+GMRES_RESTART = 28  # deal.II's default basis (30 temporary vectors)
 
 
 class SchemeBase:
@@ -114,6 +122,71 @@ class SchemeBase:
     # -- interface -----------------------------------------------------------
     def solve_step(self, u, timestep_number: int, t: float, tau: float):
         raise NotImplementedError
+
+
+class RadauScheme(SchemeBase):
+    """What the Radau IIA schemes share (``irk``, ``complex_irk`` and their
+    batched forms): the Butcher data, the kernel switch, the huge-grid
+    GMRES basis, the rhs ``A^-1 (F - K u)`` and the b-weighted update."""
+
+    def __init__(
+        self,
+        problem: HeatProblem,
+        params: Parameters,
+        *,
+        kernels: bool | None = None,
+        tables: IRKTables | None = None,
+        start=None,
+    ):
+        """``kernels``: run the hand-written kernels (default: when the
+        configuration's operator mode on this device is "pallas").
+        ``tables``: Butcher/diagonalisation tables (default: computed).
+        ``start``: Lanczos start vectors for ``gmg_reinit``."""
+        super().__init__(problem, params)
+        mode = params.operator_mode(self.device)
+        if mode == "dense":
+            raise NotImplementedError(
+                "MatrixBased (dense) operators are not ported yet (ROADMAP Queue 1 item 7)"
+            )
+        self.kernels = mode == "pallas" if kernels is None else kernels
+        self.q = params.irk_stages
+        self.tables = tables if tables is not None else irk_tables(self.q)
+        self.A_inv = self.tensor(self.tables.A_inv)
+        self.b_vec, self.c_vec = self.tensor(self.tables.b), self.tensor(self.tables.c)
+        self.start = start
+        # the JAX package's huge-grid GMRES policy (schemes/irk.py:116)
+        self.compact = self.fine.m**self.dim > COMPACT_GRID_DOFS
+        self.restart = COMPACT_BASIS if self.compact else GMRES_RESTART
+        # per-step solver counts of every step (never cleared)
+        self.step_log: list[dict] = []
+
+    def tensor(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a), dtype=self.dtype, device=self.device)
+
+    def rhs_fn(self, u, t, tau):
+        tf = stage_times_factor(self.c_vec, t, tau, self.dim)
+        W = self.problem.stage_load(tf)
+        W = W - apply_stiffness(self.fine, u, self.dim)[None]
+        # the A^-1 mix of the rhs stays the plain GEMM (once per step)
+        return st.stage_mix_ref(self.A_inv, W)
+
+    def update_fn(self, u, W, tau):
+        return u + tau * torch.tensordot(self.b_vec, W, dims=1)
+
+    def check_outer(self, n_outer: int, what: str) -> None:
+        """Abort on non-convergence (reference main.cc:927-930) and warn
+        when the compact basis restarted where deal.II's would not."""
+        if n_outer >= 1000:
+            raise RuntimeError(f"{what} did not converge within 1000 iterations")
+        if self.compact and n_outer > self.restart:
+            warnings.warn(
+                f"{what} took {n_outer} iterations — beyond the "
+                f"{self.restart}-column compact basis used at this grid size, "
+                "so a restart fired where deal.II's 30-vector basis would "
+                "not; iteration counts may diverge from the reference here",
+                RuntimeWarning,
+                stacklevel=3,
+            )
 
 
 def stage_times_factor(c_vec: torch.Tensor, t: float, tau: float, dim: int) -> torch.Tensor:

@@ -34,69 +34,27 @@ runs past them warns: deal.II's 30-vector basis would not have restarted.
 
 from __future__ import annotations
 
-import warnings
-
 import numpy as np
 import torch
 
 from ..ops.cuda import stencil as st
-from ..ops.mass_laplace import apply_stiffness
 from ..solvers.gmg import gmg_reinit, stage_prec, vcycle
-from ..solvers.krylov import COMPACT_BASIS, COMPACT_GRID_DOFS, gmres, pcg
-from ..tables import IRKTables, irk_tables
-from .base import SchemeBase, stage_times_factor
-
-GMRES_RESTART = 28  # deal.II's default basis (30 temporary vectors)
+from ..solvers.krylov import gmres, pcg
+from .base import RadauScheme
 
 
-class IRK(SchemeBase):
-    def __init__(
-        self,
-        problem,
-        params,
-        *,
-        kernels: bool | None = None,
-        tables: IRKTables | None = None,
-        start=None,
-    ):
-        """``kernels``: run the hand-written kernels (default: when the
-        configuration's operator mode on this device is "pallas").
-        ``tables``: Butcher/diagonalisation tables (default: computed).
-        ``start``: Lanczos start vectors for ``gmg_reinit``."""
-        super().__init__(problem, params)
-        mode = params.operator_mode(self.device)
-        if mode == "dense":
-            raise NotImplementedError(
-                "MatrixBased (dense) operators are not ported yet (ROADMAP Queue 1 item 7)"
-            )
-        self.kernels = mode == "pallas" if kernels is None else kernels
+class IRK(RadauScheme):
+    def __init__(self, problem, params, **options):
+        """``options``: see ``RadauScheme``."""
+        super().__init__(problem, params, **options)
         self.sequential = params.time_integration_scheme == "irk"
-        q = params.irk_stages
-        self.q = q
-        tabs = tables if tables is not None else irk_tables(q)
-
-        def t(a):
-            return torch.as_tensor(a, dtype=self.dtype, device=self.device)
-
-        self.A_inv, self.T, self.T_inv = t(tabs.A_inv), t(tabs.T), t(tabs.T_inv)
-        self.b_vec, self.c_vec, self.d_vec = t(tabs.b), t(tabs.c), t(tabs.D)
-        self.start = start
-        # the JAX package's huge-grid GMRES policy (schemes/irk.py:116)
-        self.compact = self.fine.m**self.dim > COMPACT_GRID_DOFS
-        self.restart = COMPACT_BASIS if self.compact else GMRES_RESTART
-        # per-step solver counts of every step (never cleared)
-        self.step_log: list[dict] = []
+        tabs = self.tables
+        self.T, self.T_inv = self.tensor(tabs.T), self.tensor(tabs.T_inv)
+        self.d_vec = self.tensor(tabs.D)
 
     def _reinit(self, tau):
         # all stages batched, also for `irk` (JAX schemes/irk.py:165-166)
         return gmg_reinit(self.gmg, self.d_vec, tau, self.dim, start=self.start)
-
-    def rhs_fn(self, u, t, tau):
-        tf = stage_times_factor(self.c_vec, t, tau, self.dim)
-        W = self.problem.stage_load(tf)
-        W = W - apply_stiffness(self.fine, u, self.dim)[None]
-        # the A^-1 mix of the rhs stays the plain GEMM (once per step)
-        return st.stage_mix_ref(self.A_inv, W)
 
     def _stage_solve(self, prec_i, i: int, z: torch.Tensor, tau) -> tuple[torch.Tensor, int]:
         """(d_i M + tau K)^-1 z for one stage block z (1, *spatial): one
@@ -168,9 +126,6 @@ class IRK(SchemeBase):
         )
         return res.x, res.n_iterations, res.M_carry, res.n_restarts
 
-    def update_fn(self, u, W, tau):
-        return u + tau * torch.tensordot(self.b_vec, W, dims=1)
-
     def solve_step(self, u, timestep_number, t, tau):
         prec = self.prec_state(tau)
         with self.timers.phase("total"):
@@ -180,18 +135,7 @@ class IRK(SchemeBase):
                 W, n_outer, n_inner, n_restarts = self.solve_fn(W_rhs, prec, tau)
             with self.timers.phase("solution_update"):
                 u = self.update_fn(u, W, tau)
-        if n_outer >= 1000:
-            # reference aborts on solver non-convergence (main.cc:927-930)
-            raise RuntimeError("outer GMRES did not converge within 1000 iterations")
-        if self.compact and n_outer > self.restart:
-            warnings.warn(
-                f"outer GMRES took {n_outer} iterations — beyond the "
-                f"{self.restart}-column compact basis used at this grid size, "
-                "so a restart fired where deal.II's 30-vector basis would "
-                "not; iteration counts may diverge from the reference here",
-                RuntimeWarning,
-                stacklevel=2,
-            )
+        self.check_outer(n_outer, "outer GMRES")
         # the batched scheme's block V-cycle counts once (reference
         # main.cc:1115-1119); `irk` counts every stage's inner iterations
         inner = int(n_inner.sum()) if self.sequential else int(n_inner[0])

@@ -45,7 +45,7 @@ def estimate_chebyshev_range(
 def chebyshev_apply(
     apply: Callable,
     cheb_iter: Callable,
-    inv_diag: torch.Tensor,
+    jacobi: Callable,
     theta: torch.Tensor,
     delta: torch.Tensor,
     b: torch.Tensor,
@@ -56,8 +56,9 @@ def chebyshev_apply(
     """Chebyshev-accelerated Jacobi iteration of the given degree on a
     stage block ``b`` (q, *spatial) with per-stage ``theta``/``delta``.
 
-    ``apply(u)`` is the operator; ``cheb_iter(c1, c2, d, r, x)`` one fused
-    step ``r' = r - A d; d' = c1 d + c2 D^-1 r'; x' = x + d'``.  With
+    ``apply(u)`` is the operator; ``jacobi(r)`` is ``D^-1 r`` (of the entry
+    step); ``cheb_iter(c1, c2, d, r, x)`` one fused step
+    ``r' = r - A d; d' = c1 d + c2 D^-1 r'; x' = x + d'``.  With
     ``x0=None`` this is the preconditioner application (deal.II ``vmult``,
     zero initial guess — GMG pre-smoothing); with an initial guess it is
     the smoother ``step`` used for post-smoothing.
@@ -65,7 +66,7 @@ def chebyshev_apply(
     lanes = (b.shape[0],) + (1,) * (b.ndim - 1)
     theta_b = theta.reshape(lanes)
     r = b if x0 is None else b - apply(x0)
-    d = (inv_diag * r) / theta_b
+    d = jacobi(r) / theta_b
     x = d if x0 is None else x0 + d
     sigma = theta / delta
     rho = 1.0 / sigma

@@ -11,7 +11,8 @@ only reduce iteration counts).
 ``vcycle`` is the stage-batched V-cycle of the JAX package's
 ``vcycle_canon`` on the compact (q, *spatial) layout.  With
 ``kernels=True`` its smoother and residual run through the hand-written
-CUDA kernels (3D: K3 ``cheb_iter`` and K4 ``stencil_apply``; 2D: the
+CUDA kernels (3D: K3 ``cheb_iter``, or K3dg ``cheb_iter_dg`` on the large
+levels of ``cheb_diag_level``, and K4 ``stencil_apply``; 2D: the
 elementwise Chebyshev chain over K4-2D, as the JAX package smooths 2D
 with its apply kernel, ``solvers/gmg.py:471-477``; on CPU tensors the
 wrappers run their plain versions); with ``kernels=False`` the same
@@ -42,6 +43,21 @@ EIG_CG_ITERATIONS = 20  # reference preconditioner.h:223
 # levels at or below this DoF count are dropped and solved exactly by the
 # dense coarse solve (the JAX package's rule, gmg.py:93-98)
 COARSE_SIZE_LIMIT = 1024
+
+# 3D levels with at least this many points per stage are smoothed by K3dg
+# (the Jacobi diagonal rebuilt from the 1D factors, no D^-1 field read):
+# a stage field of 16 MiB or more at f32, so a block of four stages or more
+# outgrows the H100's 50 MB L2 and every pass of the smoother step goes to
+# DRAM, where the dropped pass is a seventh of K3's traffic.  Smaller levels
+# keep K3.  On the level chains of refinements 3-8 at degrees 1-4 this picks
+# the levels the JAX package's cheb_diag_supported picks (m >= 191).
+CHEB_DIAG_MIN_POINTS = 1 << 22
+
+
+def cheb_diag_level(m: int, dim: int) -> bool:
+    """Whether the kernel V-cycle smooths a level of m points per axis
+    with K3dg (``CHEB_DIAG_MIN_POINTS``)."""
+    return dim == 3 and m**dim >= CHEB_DIAG_MIN_POINTS
 
 
 @dataclass(frozen=True)
@@ -246,15 +262,31 @@ def vcycle(
         def apply(u):
             return apply_fn(ops, a, b, u)
 
-        def step(c1, c2, d, rr, x):
-            if fused:
-                return st.cheb_iter(ops, a, b, c1, c2, d, rr, x, invd)
-            return st.cheb_chain(apply, c1, c2, d, rr, x, invd)
+        if fused and cheb_diag_level(ops.m, dim):
+            # K3dg; the entry step divides by the diagonal built from the
+            # 1D factors, as the JAX package does in XLA (gmg.py:511-531)
+            diag = st.cheb_diag(ops, a, b, rl)
+
+            def jacobi(t):
+                return t / diag
+
+            def step(c1, c2, d, rr, x):
+                return st.cheb_iter_dg(ops, a, b, c1, c2, d, rr, x)
+
+        else:
+
+            def jacobi(t):
+                return invd * t
+
+            def step(c1, c2, d, rr, x):
+                if fused:
+                    return st.cheb_iter(ops, a, b, c1, c2, d, rr, x, invd)
+                return st.cheb_chain(apply, jacobi, c1, c2, d, rr, x)
 
         return chebyshev_apply(
             apply,
             step,
-            invd,
+            jacobi,
             prec.thetas[l],
             prec.deltas[l],
             rl,

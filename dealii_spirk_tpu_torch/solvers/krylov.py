@@ -11,7 +11,8 @@ solvers as used by the reference so iteration counts are comparable:
 * ``gmres``: *left*-preconditioned GMRES with modified Gram–Schmidt and
   Givens rotations, restart length 28 (deal.II's default of 30 temporary
   vectors; ``COMPACT_BASIS`` above ``COMPACT_GRID_DOFS``), exiting on the
-  Givens residual estimate.
+  Givens residual estimate.  ``batch`` runs independent systems along the
+  leading axis as masked lanes (the complex schemes' pair solves).
 
 Both floor the relative tolerance at 32 eps of the dtype (the JAX
 package's rule), so an f64 tolerance run in f32 cannot spin to maxiter.
@@ -63,6 +64,9 @@ class KrylovResult(NamedTuple):
     residual: object  # final monitored residual norm
     M_carry: object = None  # final preconditioner carry (stateful M only)
     n_restarts: int = 0  # restart boundaries that recomputed the residual
+    # operator applications inside the restart cycles: the iterations of
+    # the slowest live lane, summed over cycles (== n_iterations unbatched)
+    n_sweeps: int = 0
 
 
 def pcg(
@@ -180,6 +184,7 @@ def gmres(
     abstol: float = 1e-20,
     reltol: float = 0.0,
     restart: int = 28,
+    batch: bool = False,
 ) -> KrylovResult:
     """Left-preconditioned GMRES(restart) with modified Gram–Schmidt and
     Givens rotations, from x0 = 0.
@@ -190,78 +195,161 @@ def gmres(
     ``M(v, carry) -> (z, carry)`` and the carry is threaded through every
     preconditioner application and returned (the IRK schemes count inner
     V-cycles with it, reference ``main.cc:1176-1182``).
+
+    ``batch``: independent systems along the leading axis of ``b`` (see
+    ``_gmres_lanes``); the carry is then a numpy array whose leading axis
+    is the lane axis, and the counts are per lane.  Unbatched, the system
+    is one lane.
     """
+    stateful = M is not None and M_carry is not None
     if M is None:
         Ms = lambda v, c: (v, c)
     elif M_carry is None:
         Ms = lambda v, c: (M(v), c)
     else:
         Ms = M
-    carry = M_carry
+    kw = dict(maxiter=maxiter, abstol=abstol, reltol=reltol, restart=restart)
+    if batch:
+        return _gmres_lanes(A, b, Ms, M_carry, stateful=stateful, **kw)
+
+    def Ms_lane(v, c):
+        z, c = Ms(v[0], None if c is None else c[0])
+        return z[None], None if c is None else np.asarray(c)[None]
+
+    res = _gmres_lanes(
+        lambda v: A(v[0])[None], b[None], Ms_lane,
+        None if M_carry is None else np.asarray(M_carry)[None], stateful=stateful, **kw,
+    )
+    return res._replace(
+        x=res.x[0],
+        n_iterations=int(res.n_iterations[0]),
+        residual=float(res.residual[0]),
+        M_carry=res.M_carry if M_carry is None else res.M_carry[0],
+    )
+
+
+def _gmres_lanes(
+    A: Callable,
+    b: torch.Tensor,
+    Ms: Callable,
+    carry,
+    *,
+    stateful: bool,
+    maxiter: int,
+    abstol: float,
+    reltol: float,
+    restart: int,
+) -> KrylovResult:
+    """GMRES on independent systems stacked along the leading (lane) axis
+    of ``b``, as the JAX package's ``gmres(batch=True)`` runs them
+    (``solvers/krylov.py:290-431``).
+
+    Every lane keeps its own tolerance, iteration count, Hessenberg and
+    Givens state (host numpy arrays at the field's precision) and exits on
+    its own Givens estimate.  A lane that is done stays frozen: its x stops
+    changing, its carry entries stop counting.  The cycles are shared: a
+    cycle runs while any lane is live, and at its end the residual is
+    recomputed (one vmult and one preconditioner application for all
+    lanes) when any lane goes on; the lanes that were live in that cycle
+    take the recomputed residual, and its norm replaces their estimate.
+    """
     npdt = np.float64 if b.dtype == torch.float64 else np.float32
-    f = npdt  # host scalars at the field's precision
+    f = npdt
+    lanes = b.shape[0]
+    R = restart
+
+    def norms(v):
+        return np.sqrt(_dot(v, v, True).cpu().numpy().astype(npdt))
+
+    def ex(s: np.ndarray) -> torch.Tensor:
+        return _expand(torch.as_tensor(s, dtype=b.dtype, device=b.device), b, True)
+
+    def mask_carry(new, old, active):
+        if not stateful:
+            return old
+        act = active.reshape(active.shape + (1,) * (np.ndim(new) - 1))
+        return np.where(act, new, old)
 
     x = torch.zeros_like(b)
     r, carry = Ms(b, carry)
-    res = f(np.sqrt(f(_dot(r, r, False).item())))
-    tol = max(f(abstol), f(max(reltol, _eps_floor(b.dtype))) * res)
-    it = 0
-    n_restarts = 0
-    while res > tol and it < maxiter:
-        # one restart cycle from x with preconditioned residual r
-        beta = f(np.sqrt(f(_dot(r, r, False).item())))
-        V = [r / float(beta if beta > 0 else 1.0)]
-        H = np.zeros((restart + 1, restart), dtype=npdt)
-        g = np.zeros(restart + 1, dtype=npdt)
-        g[0] = beta
-        cs = np.zeros(restart, dtype=npdt)
-        sn = np.zeros(restart, dtype=npdt)
+    res = norms(r)
+    tol = np.maximum(f(abstol), f(max(reltol, _eps_floor(b.dtype))) * res)
+    it = np.zeros(lanes, dtype=np.int64)
+    n_restarts = n_sweeps = 0
+
+    def live():
+        return (res > tol) & (it < maxiter)
+
+    while live().any():
+        cycle_live = live()
+        beta = norms(r)
+        V = [r / ex(np.where(beta > 0, beta, f(1.0)))]
+        H = np.zeros((lanes, R + 1, R), dtype=npdt)
+        g = np.zeros((lanes, R + 1), dtype=npdt)
+        g[:, 0] = beta
+        cs = np.zeros((lanes, R), dtype=npdt)
+        sn = np.zeros((lanes, R), dtype=npdt)
         k = 0
-        while res > tol and k < restart and it < maxiter:
-            w, carry = Ms(A(V[k]), carry)
+        while k < R and live().any():
+            active = live()
+            w, carry_new = Ms(A(V[k]), carry)
+            carry = mask_carry(carry_new, carry, active)
             hs = []
             for j in range(k + 1):
-                hij = _dot(V[j], w, False)
-                w = w - hij * V[j]
+                hij = _dot(V[j], w, True)
+                w = w - _expand(hij, w, True) * V[j]
                 hs.append(hij)
-            hk1 = torch.sqrt(_dot(w, w, False))
+            hk1 = torch.sqrt(_dot(w, w, True))
             hs.append(hk1)
-            V.append(w / torch.where(hk1 > 0, hk1, torch.ones_like(hk1)))
-            hcol = torch.stack(hs).cpu().numpy().astype(npdt)
-            # apply the previous rotations, then a new one annihilating
-            # hcol[k+1]
+            V.append(w / _expand(torch.where(hk1 > 0, hk1, torch.ones_like(hk1)), w, True))
+            hcol = torch.stack(hs, dim=1).cpu().numpy().astype(npdt)  # (lanes, k + 2)
             for j in range(k):
-                hj, hj1 = hcol[j], hcol[j + 1]
-                hcol[j] = cs[j] * hj + sn[j] * hj1
-                hcol[j + 1] = -sn[j] * hj + cs[j] * hj1
-            hk, hk1r = hcol[k], hcol[k + 1]
-            denom = f(np.sqrt(hk * hk + hk1r * hk1r))
-            c_new = hk / denom if denom > 0 else f(1.0)
-            s_new = hk1r / denom if denom > 0 else f(0.0)
-            hcol[k] = denom
-            hcol[k + 1] = 0.0
-            H[: k + 2, k] = hcol
-            cs[k], sn[k] = c_new, s_new
-            gk = g[k]
-            g[k] = c_new * gk
-            g[k + 1] = -s_new * gk
-            res = f(abs(g[k + 1]))
-            it += 1
+                hj, hj1 = hcol[:, j].copy(), hcol[:, j + 1].copy()
+                hcol[:, j] = cs[:, j] * hj + sn[:, j] * hj1
+                hcol[:, j + 1] = -sn[:, j] * hj + cs[:, j] * hj1
+            hk, hk1r = hcol[:, k].copy(), hcol[:, k + 1].copy()
+            denom = np.sqrt(hk * hk + hk1r * hk1r)
+            pos = denom > 0
+            safe = np.where(pos, denom, f(1.0))
+            c_new = np.where(pos, hk / safe, f(1.0))
+            s_new = np.where(pos, hk1r / safe, f(0.0))
+            hcol[:, k] = denom
+            hcol[:, k + 1] = 0.0
+            gk = g[:, k].copy()
+            # frozen lanes keep their state
+            H[active, : k + 2, k] = hcol[active]
+            cs[active, k] = c_new[active]
+            sn[active, k] = s_new[active]
+            g[active, k] = (c_new * gk)[active]
+            g[active, k + 1] = (-s_new * gk)[active]
+            res = np.where(active, np.abs(-s_new * gk), res).astype(npdt)
+            it += active
+            n_sweeps += 1
             k += 1
-        # back-substitution on the rotated (upper-triangular) H
-        y = np.zeros(k, dtype=npdt)
-        for i in range(k - 1, -1, -1):
-            y[i] = (g[i] - H[i, i + 1 : k] @ y[i + 1 : k]) / H[i, i]
+        # per-lane back-substitution on the rotated (upper-triangular) H,
+        # over the columns with a nonzero diagonal, as the JAX package
+        # sizes it: a breakdown column (w = 0, e.g. an inner solve that
+        # took no iteration) drops out instead of dividing by zero
+        idx = np.arange(k)
+        n_cols = np.sum(np.abs(H[:, idx, idx]) > 0, axis=1)
+        y = np.zeros((lanes, k), dtype=npdt)
+        for lane in range(lanes):
+            kl = int(n_cols[lane])
+            for i in range(kl - 1, -1, -1):
+                y[lane, i] = (
+                    g[lane, i] - H[lane, i, i + 1 : kl] @ y[lane, i + 1 : kl]
+                ) / H[lane, i, i]
         dx = torch.zeros_like(x)
-        for j in range(k):
-            dx = dx + float(y[j]) * V[j]
+        for j in range(int(n_cols.max(initial=0))):
+            dx = dx + ex(y[:, j]) * V[j]
         x = x + dx
-        if res > tol and it < maxiter:
+        if live().any():
             # restart: recompute the preconditioned residual
-            r, carry = Ms(b - A(x), carry)
-            res = f(np.sqrt(f(_dot(r, r, False).item())))
+            r, carry_new = Ms(b - A(x), carry)
+            carry = mask_carry(carry_new, carry, cycle_live)
+            res = np.where(cycle_live, norms(r), res).astype(npdt)
             n_restarts += 1
     return KrylovResult(
-        x=x, n_iterations=it, residual=float(res), M_carry=carry,
-        n_restarts=n_restarts,
+        x=x, n_iterations=it, residual=res, M_carry=carry,
+        n_restarts=n_restarts, n_sweeps=n_sweeps,
     )

@@ -177,6 +177,12 @@ class IRKTables:
     D_re: np.ndarray
     D_im: np.ndarray
 
+    @property
+    def n_pairs(self) -> int:
+        """Conjugate eigenpair groups, ceil(s / 2): the lane count of the
+        complex schemes' pair solves."""
+        return (self.n_stages + 1) // 2
+
 
 def _complex_diagonalization(A_inv: np.ndarray):
     w, V = np.linalg.eig(A_inv)

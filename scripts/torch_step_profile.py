@@ -6,8 +6,9 @@ on one CUDA device.
 
 Runs the path's configuration from ``chip_smoke.PATHS`` (P1: 3D
 ``irk_batched``, q=4; P2: 3D ``irk``, q=5; P3: 2D ``irk_batched``, q=4;
-all MatrixFree + GMG, InnerTolerance 0, OuterTolerance 1e-4, Q1, f32,
-dt 0.1) for two warm-up steps, then profiles the next step with
+P4: 3D ``complex_irk_batched``, q=5, refinement 8; P5: 3D ``complex_irk``
+(PRESB), q=5; all MatrixFree + GMG, InnerTolerance 0, OuterTolerance
+1e-4, Q1, f32, dt 0.1) for two warm-up steps, then profiles the next step with
 ``torch.profiler``: the step's wall time (host clock
 around work that ends in a synchronise), the summed device time of its
 kernels and the device's idle share, the number of kernel launches, and
@@ -20,6 +21,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import subprocess
 import sys
 import time
 
@@ -29,10 +31,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main(argv=None) -> int:
+    from chip_smoke import PATHS
+
     ap = argparse.ArgumentParser()
-    ap.add_argument("--path", default="P1", choices=("P1", "P2", "P3"))
+    ap.add_argument("--path", default="P1", choices=tuple(PATHS))
     ap.add_argument("--refinement", type=int, default=None,
-                    help="default: the path's own (7, 7, 10)")
+                    help="default: the path's own (7, 7, 10, 8, 7)")
     ap.add_argument("--plain", action="store_true")
     ap.add_argument("--trace", default=None)
     ap.add_argument("--top", type=int, default=12)
@@ -40,7 +44,6 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
 
-    from chip_smoke import PATHS
     from dealii_spirk_tpu_torch.config import Parameters
     from dealii_spirk_tpu_torch.problem import HeatProblem
     from dealii_spirk_tpu_torch.schemes import make_scheme
@@ -80,7 +83,11 @@ def main(argv=None) -> int:
     n_launch = sum(e.count for e in kernels)
     log = scheme.step_log[-1]
     arm = "plain torch" if args.plain else "kernels"
-    print(f"{torch.cuda.get_device_name(0)}; {args.path} ({params.time_integration_scheme}, "
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True,
+    ).stdout.strip()
+    print(f"{smi or torch.cuda.get_device_name(0)}; {args.path} ({params.time_integration_scheme}, "
           f"{dim}D, q={params.irk_stages}, refinement {params.n_refinements}); arm: {arm}; "
           f"step counts {log}")
     print(f"step wall {wall * 1e3:.3f} ms; device busy {busy * 1e3:.3f} ms; "

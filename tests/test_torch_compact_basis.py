@@ -19,8 +19,9 @@ import warnings
 import numpy as np
 import pytest
 
+import dealii_spirk_tpu.schemes.complex_irk as jcirk
 import dealii_spirk_tpu.schemes.irk as jirk
-import dealii_spirk_tpu_torch.schemes.irk as tirk
+import dealii_spirk_tpu_torch.schemes.base as tbase
 from dealii_spirk_tpu.config import Parameters as JParameters
 from dealii_spirk_tpu.runner import run_config as jrun_config
 from dealii_spirk_tpu_torch.config import Parameters as TParameters
@@ -41,10 +42,10 @@ CFG = {
 }
 
 
-def _run(run, params):
+def _run(run, params, **kw):
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        out = run(params, verbose=False)
+        out = run(params, verbose=False, **kw)
     n_warn = sum(
         issubclass(w.category, RuntimeWarning) and "compact basis" in str(w.message)
         for w in caught
@@ -55,12 +56,12 @@ def _run(run, params):
 @pytest.mark.parametrize("scheme", ["irk_batched", "irk"])
 def test_compact_basis_restarts_match_jax(scheme, monkeypatch):
     monkeypatch.setattr(jirk, "COMPACT_GRID_DOFS", 100)
-    monkeypatch.setattr(tirk, "COMPACT_GRID_DOFS", 100)
+    monkeypatch.setattr(tbase, "COMPACT_GRID_DOFS", 100)
     cfg = {**CFG, "TimeIntegrationScheme": scheme}
     j, j_warn = _run(jrun_config, JParameters.from_dict({**cfg, "OperatorMode": "stencil"}, dim=2))
-    t, t_warn = _run(trun_config, TParameters.from_dict(cfg, dim=2))
+    t, t_warn = _run(trun_config, TParameters.from_dict(cfg, dim=2), device="cpu")
     scheme_t = t["scheme"]
-    assert scheme_t.compact and scheme_t.restart == tirk.COMPACT_BASIS == 12
+    assert scheme_t.compact and scheme_t.restart == tbase.COMPACT_BASIS == 12
     assert (t["n_outer"], t["n_inner"]) == (j["n_outer"], j["n_inner"])
     np.testing.assert_array_equal(scheme_t.n_inner_stage, np.asarray(j["scheme"].n_inner_stage))
     q = CFG["IRKStages"]
@@ -72,4 +73,28 @@ def test_compact_basis_restarts_match_jax(scheme, monkeypatch):
     # carry) is n_outer + 1 + restarts, so the restarts agree as well
     j_stage = int(np.asarray(j["scheme"].n_inner_stage)[0])
     assert j_stage - int(j["n_outer"]) - 1 == scheme_t.step_log[-1]["n_restarts"]
+    assert j_warn == t_warn == t["n_timesteps"] == 2
+
+
+def test_complex_compact_basis_restarts_match_jax(monkeypatch):
+    """``complex_irk_batched`` (q=6, degree 4, dt 0.01, OuterTolerance
+    1e-10): the three pair lanes take 20, 13 and 8 iterations, so with the
+    12-column basis the first two restart once and the third is frozen
+    from its 8th iteration on.  Per-pair outer counts, total inner counts
+    (a lane live in the restarted cycle also counts the recomputed
+    residual's V-cycle) and the warnings equal JAX's."""
+    monkeypatch.setattr(jcirk, "COMPACT_GRID_DOFS", 100)
+    monkeypatch.setattr(tbase, "COMPACT_GRID_DOFS", 100)
+    cfg = {**CFG, "TimeIntegrationScheme": "complex_irk_batched", "IRKStages": 6,
+           "OuterTolerance": 1e-10}
+    j, j_warn = _run(jrun_config, JParameters.from_dict({**cfg, "OperatorMode": "stencil"}, dim=2))
+    t, t_warn = _run(trun_config, TParameters.from_dict(cfg, dim=2), device="cpu")
+    scheme_t = t["scheme"]
+    assert scheme_t.compact and scheme_t.restart == 12
+    assert (t["n_outer"], t["n_inner"]) == (j["n_outer"], j["n_inner"])
+    np.testing.assert_array_equal(scheme_t.n_inner_stage, np.asarray(j["scheme"].n_inner_stage))
+    for s in scheme_t.step_log:
+        assert s["n_outer_pair"] == [20, 13, 8] and s["n_restarts"] == 1
+        assert s["n_inner_pair"] == [[22, 22], [15, 15], [10, 10]]
+    np.testing.assert_allclose(t["error_L2"], j["error_L2"], rtol=1e-10)
     assert j_warn == t_warn == t["n_timesteps"] == 2

@@ -56,7 +56,7 @@ def test_irk_batched_slice_matches_jax(jax_run, kernels):
     )
     tst.reset_launches()
     out = trun_config(
-        TParameters.from_dict(BASE, dim=3), verbose=False,
+        TParameters.from_dict(BASE, dim=3), device="cpu", verbose=False,
         kernels=kernels, tables=tables,
     )
     assert tst.LAUNCHES == {k: 0 for k in tst.LAUNCHES}  # CPU: no launches
@@ -86,7 +86,7 @@ def test_irk_batched_2d_matches_jax():
     cfg = {**BASE, "NRefinements": 4, "FEDegree": 2}
     j = jrun_config(JParameters.from_dict({**cfg, "OperatorMode": "stencil"}, dim=2),
                     verbose=False)
-    t = trun_config(TParameters.from_dict(cfg, dim=2), verbose=False)
+    t = trun_config(TParameters.from_dict(cfg, dim=2), device="cpu", verbose=False)
     assert (t["n_outer"], t["n_inner"]) == (j["n_outer"], j["n_inner"])
     want = np.asarray(j["u"])
     np.testing.assert_allclose(t["u"].numpy(), want, rtol=RTOL, atol=RTOL * np.abs(want).max())
@@ -96,16 +96,16 @@ def test_irk_batched_2d_matches_jax():
 def test_default_start_and_tables_stay_close(jax_run):
     """With its own tables and default start vectors (numpy bits equal to
     JAX's threefry draw) the port reproduces the JAX run exactly."""
-    out = trun_config(TParameters.from_dict(BASE, dim=3), verbose=False)
+    out = trun_config(TParameters.from_dict(BASE, dim=3), device="cpu", verbose=False)
     assert (out["n_outer"], out["n_inner"]) == (jax_run["n_outer"], jax_run["n_inner"])
     np.testing.assert_allclose(out["error_L2"], jax_run["error_L2"], rtol=RTOL)
 
 
-@pytest.mark.parametrize("scheme", ["ost", "complex_irk", "spirk", "complex_irk_batched"])
+@pytest.mark.parametrize("scheme", ["ost", "spirk", "complex_spirk", "complex_spirk_batched"])
 def test_unported_schemes_raise(scheme):
     params = TParameters.from_dict({**BASE, "TimeIntegrationScheme": scheme}, dim=3)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_scheme(HeatProblem(params), params)
+        make_scheme(HeatProblem(params, device="cpu"), params)
 
 
 def test_cli_runs_a_json_config(tmp_path, capsys):

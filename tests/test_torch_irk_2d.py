@@ -45,7 +45,7 @@ def test_irk_batched_2d_path_matches_jax(ref, kernels):
     tst.reset_launches()
     t = trun_config(
         TParameters.from_dict({**BASE, "NRefinements": ref}, dim=2),
-        verbose=False, kernels=kernels,
+        device="cpu", verbose=False, kernels=kernels,
     )
     assert tst.LAUNCHES == {k: 0 for k in tst.LAUNCHES}  # CPU: no launches
     assert t["scheme"].kernels is kernels

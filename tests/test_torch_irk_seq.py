@@ -52,7 +52,9 @@ def _jax(case):
 def test_irk_matches_jax(case, kernels):
     j = _jax(case)
     tst.reset_launches()
-    t = trun_config(TParameters.from_dict(_cfg(*case), dim=3), verbose=False, kernels=kernels)
+    t = trun_config(
+        TParameters.from_dict(_cfg(*case), dim=3), device="cpu", verbose=False, kernels=kernels
+    )
     assert tst.LAUNCHES == {k: 0 for k in tst.LAUNCHES}  # CPU: no launches
     assert t["n_timesteps"] == j["n_timesteps"] == 2
     assert (t["n_outer"], t["n_inner"]) == (j["n_outer"], j["n_inner"])

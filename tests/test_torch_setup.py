@@ -97,7 +97,7 @@ def _params(ref, p, dim):
 @pytest.mark.parametrize("dim,p,ref", [(3, 1, 4), (2, 2, 4)])
 def test_problem_data_match(dim, p, ref):
     jpar, tpar = _params(ref, p, dim)
-    jp, tp = jprob.HeatProblem(jpar), tprob.HeatProblem(tpar)
+    jp, tp = jprob.HeatProblem(jpar), tprob.HeatProblem(tpar, device="cpu")
     np.testing.assert_allclose(tp.u0.numpy(), np.asarray(jp.u0), rtol=0, atol=ATOL)
 
     rng = np.random.default_rng(5)

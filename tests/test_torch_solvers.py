@@ -137,7 +137,8 @@ def test_chebyshev_apply_matches(with_x0):
     got = tcheb.chebyshev_apply(
         lambda u: tst.stencil_apply(tops, ta, b, u),
         lambda c1, c2, d, r, x: tst.cheb_iter(tops, ta, b, c1, c2, d, r, x, tinvd),
-        tinvd, torch.as_tensor(theta), torch.as_tensor(delta), torch.as_tensor(rhs),
+        lambda r: tinvd * r, torch.as_tensor(theta), torch.as_tensor(delta),
+        torch.as_tensor(rhs),
         x0=None if x0 is None else torch.as_tensor(x0),
     )
     _close(got, want)
