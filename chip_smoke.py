@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives five paths of the port through ``run_config`` on ``cuda``, each
+Drives seven paths of the port through ``run_config`` on ``cuda``, each
 MatrixFree + GMG, InnerTolerance 0, OuterTolerance 1e-4, Q1, f32, dt 0.1,
 3 timesteps:
 
@@ -18,7 +18,13 @@ MatrixFree + GMG, InnerTolerance 0, OuterTolerance 1e-4, Q1, f32, dt 0.1,
   K3dg on the 255 level, K3/K4 below, the 12-column GMRES basis;
 * P5: ``complex_irk`` with PRESB (json/complex_irk.json's widths: 3D,
   q=5, refinement 7) — K5 + K2 vmult, K2 maps, K4 and two 3-lane
-  V-cycles (K3/K4) per preconditioner application.
+  V-cycles (K3/K4) per preconditioner application;
+* P6: ``spirk`` (json/spirk.json's widths: 3D, q=5, refinement 7), ring
+  mixer, on a (5, 2) slot mesh — ten slots, all on the one card, z slabs
+  of 64 and 63 planes — through the halo kernels K9a, K9b, K9c;
+* P7: ``spirk`` with UseSharedMemory (json/spirk_sm.json's widths: 3D,
+  q=2, refinement 8; the all-gather mixer) on a (2, 2) mesh — K9d on the
+  255 level, K9a/K9b/K9c, the 12-column GMRES basis.
 
 Phases; any failure exits non-zero:
 
@@ -31,15 +37,21 @@ Phases; any failure exits non-zero:
    1e-5 max|ref|, with CUDA-event times of kernel, plain version and,
    where one PyTorch call computes the same function, that call
    (``library_ms``; held against the plain version, used nowhere in the
-   port) at the paths' finest levels;
+   port) at the paths' finest levels; the halo kernels K9a-K9d through
+   the space-sharded layer (2 and 4 space slots, degrees 1-4): gathered,
+   against the same layer over their plain versions, and ``torch.equal``
+   to the whole-field kernel;
 4. per path, the kernel arm: the launch counts (all set to 0 just before
    the run, read just after) must equal what the solve structure implies
-   and include every kernel of the path; L2 error < 1e-2;
+   and include every kernel of the path; L2 error < 1e-2; on a mesh the
+   bytes passed between slots, by kind, must equal the structure's too,
+   with no message above p (grid transfers: h) planes;
 5. per path, the plain arm: the same run on the plain torch operators;
    per-step outer and per-stage (per-pair) inner counts within 1 of the
    kernel arm, solutions close;
-6. the mutual oracle: P5's L2 error within 1% of P2's (same q,
-   refinement and tolerances, two different schemes).
+6. the mutual oracles: P5's and P6's L2 error within 1% of P2's (same q,
+   refinement and tolerances, three different schemes), and P6's outer
+   count per step within 1 of an unsharded ``irk_batched`` run's.
 
 Prints the kernel summary as one JSON line, then as its last line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -85,9 +97,16 @@ PATHS = {
                "IRKStages": 5}, 5),
     "P5": (3, {**_COMMON, "NRefinements": 7, "TimeIntegrationScheme": "complex_irk",
                "IRKStages": 5}, 4),
+    "P6": (3, {**_COMMON, "NRefinements": 7, "TimeIntegrationScheme": "spirk",
+               "IRKStages": 5}, 4),
+    "P7": (3, {**_COMMON, "NRefinements": 8, "TimeIntegrationScheme": "spirk",
+               "IRKStages": 2, "UseSharedMemory": True, "DoRowMajor": True, "Padding": 0}, 5),
 }
-ORACLE = ("P5", "P2", 0.01)  # L2 of the first within this share of the second's
+SLOTS = {"P6": 10, "P7": 4}  # slots of the (stage, space) mesh, all on the one card
+# L2 of the first within this share of the second's
+ORACLES = (("P5", "P2", 0.01), ("P6", "P2", 0.01))
 _ST = "dealii_spirk_tpu/ops/pallas/stencil.py"
+_SH = "dealii_spirk_tpu/ops/pallas/sharded.py"
 _CS = "dealii_spirk_tpu_torch/csrc/"
 KERNELS = {
     # LAUNCHES key: (C source, TPU kernel it replaces)
@@ -99,6 +118,16 @@ KERNELS = {
     "stencil_apply_2d": (_CS + "stencil_apply.cu", f"{_ST}:832"),
     "mass_stiffness_apply": (_CS + "mass_stiffness_apply.cu", f"{_ST}:762"),
     "mass_stiffness_apply_2d": (_CS + "mass_stiffness_apply.cu", f"{_ST}:863"),
+    "stencil_apply_halo": (_CS + "stencil_apply.cu", f"{_SH}:102"),
+    "mass_stiffness_apply_halo": (_CS + "mass_stiffness_apply.cu", f"{_SH}:136"),
+    "cheb_iter_halo": (_CS + "cheb_iter.cu", f"{_SH}:164"),
+    "cheb_iter_dg_halo": (_CS + "cheb_iter.cu", f"{_SH}:187"),
+}
+HALO = {  # halo kernel: its whole-field kernel
+    "stencil_apply_halo": "stencil_apply",
+    "mass_stiffness_apply_halo": "mass_stiffness_apply",
+    "cheb_iter_halo": "cheb_iter",
+    "cheb_iter_dg_halo": "cheb_iter_dg",
 }
 # field passes each kernel must make (each input read once, each output
 # written once): K1 u -> out; K3 d, r, x, D^-1 -> r', d', x'; K3dg without
@@ -152,6 +181,23 @@ KERNEL_CASES = [
     (2, 4, 6, 3, K2D, ()),
     (2, 4, 6, 4, K2D, ()),
 ]
+# the halo kernels through the sharded layer: (q, refinement, degree, space
+# slot counts, timed at one slab of the first count); one stage per stage
+# row, as P6 and P7 launch them
+HALO_CASES = [
+    (5, 7, 1, (2, 4), True),  # P6's finest level: slabs of 64 + 63 planes
+    (5, 6, 1, (2, 4), False),
+    (5, 5, 1, (2, 4), False),
+    (5, 4, 1, (2,), False),
+    (2, 8, 1, (2, 4), True),  # P7's finest level: slabs of 128 + 127 planes
+    (2, 7, 1, (2,), False),
+    (2, 6, 1, (2,), False),
+    (2, 5, 1, (2,), False),
+    (2, 4, 1, (2,), False),
+    (4, 4, 2, (2, 4), False),  # degrees 2-4
+    (4, 4, 3, (2, 4), False),
+    (4, 3, 4, (2, 4), False),
+]
 # K2 at the complex maps' shapes: (dim, q_in, q_out, refinement, timed) —
 # T^-1 (2 n2 x q), T (q x 2 n2), the vmult's 2x2 pair blocks (2 n2 x 2 n2)
 MIX_CASES = [
@@ -180,20 +226,24 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(name: str, q_in: int, q_out: int, points: int, p: int, dim: int) -> tuple[float, str]:
+def bound(name: str, q_in: int, q_out: int, points: int, p: int, dim: int,
+          halo_points: int = 0) -> tuple[float, str]:
     """(ms, what binds) of the least time the H100 could take: the larger
     of the bytes the function must move over the HBM rate and its f32
     operations over the f32 peak.  Operations per output point of one
     stage, nb = 2p + 1 taps per axis: the shifted 3D apply 14 nb (z pass
     two sums, y pass C and D, x pass one sum of two products), K5 16 nb,
     K1 K5's plus 2 q for the mix, the Chebyshev update 8 more, K3dg's
-    diagonal 10 more; 2D apply and K5-2D 10 nb; K2 2 q_in."""
+    diagonal 10 more; 2D apply and K5-2D 10 nb; K2 2 q_in.  A halo
+    kernel is its whole-field kernel on the slab's ``points``, plus the
+    ``halo_points`` of the 2p neighbour planes that its operand carries."""
     nb = 2 * p + 1
+    name = HALO.get(name, name)
     if name == "stage_mix":
         nbytes = 4 * (q_in + q_out) * points
         flops = 2 * q_in * q_out * points
     else:
-        nbytes = 4 * PASSES[name] * q_in * points
+        nbytes = 4 * q_in * (PASSES[name] * points + halo_points)
         per_point = {
             "ms_mix_apply": 16 * nb + 2 * q_in,
             "cheb_iter": 14 * nb + 8,
@@ -216,15 +266,21 @@ def _outer(vs):
     return out
 
 
-def library_calls(ops, q: int, dim: int, a, b, u, mat) -> dict:
+def library_calls(ops, q: int, dim: int, a, b, u, mat, z_halo: bool = False) -> dict:
     """The one PyTorch call that computes each kernel's function, where
     there is one: K2 is ``mat @ W``; K4 and K5 at p = 1 a grouped
     convolution with a 3^dim tensor-product weight per stage (zero
-    padding; two output channels per stage for K5).  Timed only."""
+    padding; two output channels per stage for K5).  ``z_halo``: ``u`` is
+    a slab that carries its z halo, so the convolution does not pad z (a
+    slab away from the upper domain end: the Q1 rows are all alike).
+    Timed only."""
     F = torch.nn.functional
-    calls = {"stage_mix": lambda: (mat @ u.reshape(q, -1)).view(u.shape)}
+    calls = {}
+    if mat is not None:
+        calls["stage_mix"] = lambda: (mat @ u.reshape(q, -1)).view(u.shape)
     if ops.p != 1:
         return calls
+    pad = (0, 1, 1) if z_halo else 1
     # the 3-tap rows of a Q1 level are the same on every row, boundary rows
     # included: the band's zero weights there are the zero padding
     wm, wk = ops.mass_band[:, ops.m // 2], ops.stiff_band[:, ops.m // 2]
@@ -234,10 +290,10 @@ def library_calls(ops, q: int, dim: int, a, b, u, mat) -> dict:
     shifted = (a.reshape((q,) + (1,) * dim) * mass + b * stiff)[:, None].contiguous()
     ms_w = torch.stack([mass, stiff]).repeat(q, *([1] * dim))[:, None].contiguous()
     sfx = "" if dim == 3 else "_2d"
-    calls["stencil_apply" + sfx] = lambda: conv(u[None], shifted, padding=1, groups=q)[0]
+    calls["stencil_apply" + sfx] = lambda: conv(u[None], shifted, padding=pad, groups=q)[0]
 
     def ms():
-        out = conv(u[None], ms_w, padding=1, groups=q)[0]
+        out = conv(u[None], ms_w, padding=pad, groups=q)[0]
         return out[0::2], out[1::2]
 
     calls["mass_stiffness_apply" + sfx] = ms
@@ -322,6 +378,7 @@ def check_kernels(device) -> dict:
     from dealii_spirk_tpu_torch.ops.mass_laplace import level_ops
 
     report = {name: {"max_abs_err": 0.0, "times": []} for name in KERNELS}
+    check_halo_kernels(device, report)
     for dim, q, ref, p, names, timed in KERNEL_CASES:
         ops = level_ops(make_level(ref, p), torch.float32, device)
         cases, libs = kernel_cases(ops, q, dim, device, seed=ref * 10 + p + q)
@@ -355,13 +412,123 @@ def check_kernels(device) -> dict:
     return report
 
 
-def run_path(device, name: str, kernels: bool):
+def check_halo_kernels(device, report: dict) -> None:
+    """Phase 3 for K9a-K9d (HALO_CASES): a random block split over a
+    (q, n_space) slot mesh on the card and run through the sharded layer,
+    the gathered result against (a) the same layer over the plain versions
+    at REL_TOL and (b) the whole-field kernel, bit for bit."""
+    from dealii_spirk_tpu_torch.fem.grid import make_level
+    from dealii_spirk_tpu_torch.ops.cuda import sharded as shk
+    from dealii_spirk_tpu_torch.ops.cuda import stencil as st
+    from dealii_spirk_tpu_torch.ops.mass_laplace import level_ops
+    from dealii_spirk_tpu_torch.parallel.mesh import make_mesh
+    from dealii_spirk_tpu_torch.parallel.sharding import gather, scatter
+
+    def whole(out):
+        out = out if isinstance(out, tuple) else (out,)
+        return tuple(gather(o) for o in out)
+
+    for q, ref, p, nsps, timed in HALO_CASES:
+        ops = level_ops(make_level(ref, p), torch.float32, device)
+        m = ops.m
+        rng = np.random.default_rng(100 * ref + 10 * p + q)
+
+        def field(lo=-1.0, hi=1.0):
+            return torch.as_tensor(rng.uniform(lo, hi, (q, m, m, m)), dtype=torch.float32,
+                                   device=device)
+
+        def vec(lo, hi):
+            return torch.as_tensor(rng.uniform(lo, hi, (q,)), dtype=torch.float32,
+                                   device=device)
+
+        a, c1, c2, b = vec(0.5, 2.0), vec(0.2, 0.9), vec(0.1, 0.5), 0.1
+        u, d, r, x, invd = field(), field(), field(), field(), field(0.5, 1.5)
+        unsharded = {
+            "stencil_apply_halo": st.stencil_apply(ops, a, b, u),
+            "mass_stiffness_apply_halo": st.mass_stiffness_apply(ops, u),
+            "cheb_iter_halo": st.cheb_iter(ops, a, b, c1, c2, d, r, x, invd),
+            "cheb_iter_dg_halo": st.cheb_iter_dg(ops, a, b, c1, c2, d, r, x),
+        }
+        for nsp in nsps:
+            mesh = make_mesh(q, devices=[device] * (q * nsp))
+            level = shk.shard_level(ops, mesh)
+            ub, db, rb, xb, ib = (scatter(t, mesh, kind=None) for t in (u, d, r, x, invd))
+
+            def layer(kernels):
+                return {
+                    "stencil_apply_halo": lambda: shk.sharded_stencil_apply(
+                        level, a, b, ub, kernels=kernels),
+                    "mass_stiffness_apply_halo": lambda: shk.sharded_mass_stiffness_apply(
+                        level, ub, kernels=kernels),
+                    "cheb_iter_halo": lambda: shk.sharded_cheb_iter(
+                        level, a, b, c1, c2, db, rb, xb, ib, kernels=kernels),
+                    "cheb_iter_dg_halo": lambda: shk.sharded_cheb_iter(
+                        level, a, b, c1, c2, db, rb, xb, None, kernels=kernels),
+                }
+
+            kern, plain = layer(True), layer(False)
+            for name in HALO:
+                at = f"3D p={p} m={m} q={q} over {nsp} z slabs"
+                got = whole(kern[name]())
+                err = _hold(f"kernel {name:26s} {at}", got, whole(plain[name]()), REL_TOL)
+                report[name]["max_abs_err"] = max(report[name]["max_abs_err"], err)
+                want = unsharded[name]
+                want = want if isinstance(want, tuple) else (want,)
+                if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    raise AssertionError(f"{name} {at}: not equal to the whole-field kernel")
+            if timed and nsp == nsps[0]:
+                _time_slab(report, level.ops[0][0], ops, u, d, r, x, invd, a, b, c1, c2)
+            del kern, plain, ub, db, rb, xb, ib
+        del unsharded
+        torch.cuda.empty_cache()
+    say("halo kernels: every gathered result torch.equal to its whole-field kernel")
+
+
+def _time_slab(report, sops, ops, u, d, r, x, invd, a, b, c1, c2) -> None:
+    """Times of one slot's launch of each halo kernel at the first slab of a
+    (q, 2) mesh (one stage, planes 0 .. nz_c / 2 with its p-plane halo)."""
+    from dealii_spirk_tpu_torch.ops.cuda import stencil as st
+    from dealii_spirk_tpu_torch.parallel.sharding import z_partition
+
+    p, m = ops.p, ops.m
+    nzl = z_partition(m, 2)[0][1]
+    a1, c11, c21 = a[:1], c1[:1], c2[:1]
+    zeros = torch.zeros_like(u[:1, :p])
+    u_h = torch.cat([zeros, u[:1, : nzl + p]], dim=1)
+    d_h = torch.cat([zeros, d[:1, : nzl + p]], dim=1)
+    r1, x1, i1 = (t[:1, :nzl].contiguous() for t in (r, x, invd))
+    calls = {
+        "stencil_apply_halo": (lambda: st.stencil_apply_halo(sops, a1, b, u_h),
+                               lambda: st.stencil_apply_halo_ref(sops, a1, b, u_h)),
+        "mass_stiffness_apply_halo": (lambda: st.mass_stiffness_apply_halo(sops, u_h),
+                                      lambda: st.mass_stiffness_apply_halo_ref(sops, u_h)),
+        "cheb_iter_halo": (
+            lambda: st.cheb_iter_halo(sops, a1, b, c11, c21, d_h, r1, x1, i1),
+            lambda: st.cheb_iter_halo_ref(sops, a1, b, c11, c21, d_h, r1, x1, i1)),
+        "cheb_iter_dg_halo": (
+            lambda: st.cheb_iter_dg_halo(sops, a1, b, c11, c21, d_h, r1, x1),
+            lambda: st.cheb_iter_dg_halo_ref(sops, a1, b, c11, c21, d_h, r1, x1)),
+    }
+    libs = library_calls(ops, 1, 3, a1, b, u_h, None, z_halo=True) if p == 1 else {}
+    at = f"3D p={p} m={m} q=1 slab of {nzl} planes"
+    for name, (kern, plain) in calls.items():
+        lib = libs.get(HALO[name])
+        if lib is not None:
+            _hold(f"  library call for {name}", lib(), plain(), LIB_TOL)
+        _time(report, name, at, kern, plain, lib,
+              bound(name, 1, 1, nzl * m * m, p, 3, halo_points=2 * p * m * m))
+
+
+def run_path(device, name: str, kernels: bool, **over):
+    """``run_config`` of a path (``over``: configuration keys to replace),
+    a stage-parallel one on its SLOTS slots of the one card."""
     from dealii_spirk_tpu_torch.config import Parameters
     from dealii_spirk_tpu_torch.runner import run_config
 
     dim, cfg, _L = PATHS[name]
-    params = Parameters.from_dict(cfg, dim=dim)
-    return run_config(params, device=device, verbose=False, kernels=kernels)
+    params = Parameters.from_dict({**cfg, **over}, dim=dim)
+    return run_config(params, device=device, verbose=False, kernels=kernels,
+                      slots=SLOTS.get(name))
 
 
 def _smoother_launches(scheme, n_vcycle: int, want: dict) -> None:
@@ -398,6 +565,8 @@ def expected_launches(out) -> dict:
     scheme = out["scheme"]
     want = dict.fromkeys(st.LAUNCHES, 0)
     n_vmult = n_app = n_vcycle = 0
+    if getattr(scheme, "mesh", None) is not None:
+        return _mesh_launches(scheme, want)
     if hasattr(scheme, "n_pairs"):
         for s in scheme.step_log:
             vmults = s["n_sweeps"] + s["n_restarts"]
@@ -433,6 +602,79 @@ def expected_launches(out) -> dict:
     return want
 
 
+def _mesh_counts(scheme) -> tuple[int, int]:
+    """(vmults, preconditioner applications) of a ``spirk`` run; every
+    stage counts one V-cycle per application."""
+    n_vmult = n_app = 0
+    for s in scheme.step_log:
+        apps = s["n_outer"] + 1 + s["n_restarts"]
+        if s["n_inner_stage"] != [apps] * scheme.q:
+            raise AssertionError(f"V-cycle count off the GMRES structure: {s}")
+        n_vmult += s["n_outer"] + s["n_restarts"]
+        n_app += apps
+    return n_vmult, n_app
+
+
+def _mesh_launches(scheme, want: dict) -> dict:
+    """``spirk`` on a 3D mesh whose smoothed levels are all sharded: every
+    operation is one halo-kernel launch per slot — per vmult one K9b, per
+    V-cycle and level 8 Chebyshev steps (K9c, or K9d on ``cheb_diag_level``
+    levels) and 2 K9a; the mixes are torch (K1 and K2 stay at 0) and the
+    coarse level is a dense solve."""
+    from dealii_spirk_tpu_torch.solvers.gmg import cheb_diag_level
+
+    n_slots = scheme.mesh.slot_ids.size
+    n_vmult, n_app = _mesh_counts(scheme)
+    prec = scheme.prec_state(scheme.params.time_step_size)
+    if [lv is not None for lv in prec.levels] != [False] + [True] * (len(prec.levels) - 1):
+        raise AssertionError("every smoothed level of this path should be sharded")
+    want["mass_stiffness_apply_halo"] = n_vmult * n_slots
+    for level in prec.levels[1:]:
+        key = "cheb_iter_dg_halo" if cheb_diag_level(level.m, 3) else "cheb_iter_halo"
+        want[key] += 8 * n_app * n_slots
+        want["stencil_apply_halo"] += 2 * n_app * n_slots
+    return want
+
+
+def expected_exchange(scheme) -> tuple[dict, int]:
+    """(bytes passed between slots by kind, the most planes in one halo
+    message) that a ``spirk`` run's structure implies, f32.  With S stage
+    rows of q / S stages and C space slots, a z exchange of h planes on a
+    level of m points per axis moves 2 (C - 1) messages of h m^2 points per
+    stage: one per sharded kernel launch (h = p), one per z transfer (its
+    plan's h, on the level it reads).  A ring mix moves every stage block
+    q - 1 times, an all-gather mix S - 1 times: once per step for the
+    right-hand side, once per vmult, twice per application.  The coarse
+    level's planes outside each row's first slot travel there and back per
+    V-cycle; the right-hand side and the solution once per step."""
+    from dealii_spirk_tpu_torch.parallel.sharding import z_partition
+
+    mesh, q = scheme.mesh, scheme.q
+    C, S = mesh.n_space, mesh.n_stage
+    n_vmult, n_app = _mesh_counts(scheme)
+    n_steps = len(scheme.step_log)
+    prec = scheme.prec_state(scheme.params.time_step_size)
+    ms = [lv.m if lv is not None else None for lv in prec.levels]
+    m0, mf = scheme.gmg.level_ops[0].m, scheme.fine.m
+    p = scheme.fine.p
+    pair = 4 * q * 2 * (C - 1)  # bytes per point of a plane, both directions, every stage
+    halo, planes = n_vmult * p * mf**2, p
+    for l in range(1, len(ms)):
+        m_c = ms[l - 1] or m0
+        hr, hp = prec.restricts[l - 1].h, prec.prolongs[l - 1].h
+        halo += n_app * (10 * p * ms[l] ** 2 + hr * ms[l] ** 2 + hp * m_c**2)
+        planes = max(planes, hr, hp)
+    block = 4 * q * mf**3
+    hops = q - 1 if scheme.ring else S - 1
+    first = z_partition(m0, C)[0][1]
+    return {
+        "halo": pair * halo,
+        "mix": hops * block * (n_steps + n_vmult + 2 * n_app),
+        "coarse_gather": n_app * 2 * 4 * q * (m0 - first) * m0**2,
+        "state": n_steps * 2 * block,
+    }, planes
+
+
 def _record(out) -> dict:
     """What the comparisons need of a run, without the scheme's state
     (the GMG levels and preconditioner: GBs at refinement 8)."""
@@ -446,10 +688,13 @@ def kernel_arm(device, name: str):
     """Phase 4: the kernel arm of one path, with the launch counts of its
     run."""
     from dealii_spirk_tpu_torch.ops.cuda import stencil as st
+    from dealii_spirk_tpu_torch.parallel import sharding as sh
 
     st.reset_launches()
+    sh.reset_exchange()
     out = run_path(device, name, kernels=True)
     launches = dict(st.LAUNCHES)
+    exchange, planes = dict(sh.EXCHANGE), sh.HALO_MAX_PLANES["planes"]
     scheme = out["scheme"]
     L = len(scheme.gmg.level_ops) - 1
     say(f"{name} (kernels): {out['n_timesteps']} steps, smoothed levels L={L} "
@@ -472,6 +717,16 @@ def kernel_arm(device, name: str):
     missing = [k for k in path_kernels if launches[k] == 0]
     if missing or not path_kernels:
         raise AssertionError(f"{name}: kernels never launched on the path: {missing}")
+    if name in SLOTS:
+        mesh = scheme.mesh
+        say(f"  slot mesh {mesh.shape}: slots {mesh.slot_ids.tolist()}, all on {device}")
+        want_ex, want_planes = expected_exchange(scheme)
+        say(f"  bytes between slots: {exchange}, most planes in a halo message {planes}")
+        say(f"  bytes the structure implies: {want_ex}, planes {want_planes}")
+        if exchange != want_ex or planes != want_planes:
+            raise AssertionError(f"{name}: exchanged bytes off the structure")
+    elif any(exchange.values()):
+        raise AssertionError(f"{name}: a path without a mesh exchanged {exchange}")
     return _record(out), launches
 
 
@@ -523,7 +778,7 @@ def main() -> int:
             say(f"  ptxas {entry}: {line.split(':', 1)[-1].strip()}")
 
     report = check_kernels(device)
-    launches, l2 = {}, {}
+    launches, l2, outer = {}, {}, {}
     for name in PATHS:
         t0 = time.perf_counter()
         torch.cuda.reset_peak_memory_stats()
@@ -532,6 +787,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         plain = plain_arm(device, name, kern)
         l2[name] = kern["error_L2"]
+        outer[name] = [s.get("n_outer") for s in kern["step_log"]]
         say(f"{name} per-step ms (steps >= 2) on {smi}: kernels "
             f"{[round(t * 1e3, 3) for t in kern['step_seconds']]}, plain "
             f"{[round(t * 1e3, 3) for t in plain['step_seconds']]}; "
@@ -539,12 +795,21 @@ def main() -> int:
         del kern, plain
         gc.collect()
         torch.cuda.empty_cache()
-    a, b, share = ORACLE
-    rel = abs(l2[a] - l2[b]) / l2[b]
-    say(f"mutual oracle: {a} L2 {l2[a]:.6e} vs {b} L2 {l2[b]:.6e}: relative {rel:.3e} "
-        f"(tol {share:g})")
-    if rel > share:
-        raise AssertionError(f"{a} and {b} disagree on the error")
+    for a, b, share in ORACLES:
+        rel = abs(l2[a] - l2[b]) / l2[b]
+        say(f"mutual oracle: {a} L2 {l2[a]:.6e} vs {b} L2 {l2[b]:.6e}: relative {rel:.3e} "
+            f"(tol {share:g})")
+        if rel > share:
+            raise AssertionError(f"{a} and {b} disagree on the error")
+    # the partition leaves the iteration alone: P6 against the same solve
+    # unsharded (the JAX package asserts equal counts; on the card the
+    # per-slot partial sums reorder the reductions, hence within 1)
+    whole = run_path(device, "P6", kernels=True, TimeIntegrationScheme="irk_batched")
+    n_whole = [s["n_outer"] for s in whole["scheme"].step_log]
+    say(f"P6 outer counts per step {outer['P6']} vs unsharded irk_batched {n_whole}")
+    if max(abs(x - y) for x, y in zip(outer["P6"], n_whole)) > 1:
+        raise AssertionError("P6's outer counts moved by more than 1 under the partition")
+    del whole
 
     summary = {"kernels": []}
     for name, (src, replaces) in KERNELS.items():

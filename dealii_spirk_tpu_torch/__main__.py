@@ -1,5 +1,5 @@
 """CLI: ``python -m dealii_spirk_tpu_torch [--dim {2,3}] [--device DEV]
-cfg1.json [cfg2.json ...]``
+[--slots N] cfg1.json [cfg2.json ...]``
 
 Port of ``dealii_spirk_tpu/__main__.py`` (the reference's ``irk-2D`` /
 ``irk-3D`` executables, ``main.cc:3608-3791``): each JSON config runs in
@@ -24,6 +24,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument(
         "--device", default="cuda", help="torch device to run on: cuda (default) or cpu"
     )
+    parser.add_argument(
+        "--slots", type=int, default=None,
+        help="slots of the (stage, space) mesh of a stage-parallel scheme, all on the "
+        "device (default: the stage axis size, a (stage, 1) mesh)",
+    )
     parser.add_argument("configs", nargs="+", help="JSON parameter files")
     return parser
 
@@ -39,7 +44,7 @@ def main(argv=None) -> int:
     table = ConvergenceTable()
     for path in args.configs:
         params = Parameters.from_json(path, dim=args.dim)
-        run_config(params, table, device=args.device)
+        run_config(params, table, device=args.device, slots=args.slots)
         print()
         print(table.to_string())
     return 0

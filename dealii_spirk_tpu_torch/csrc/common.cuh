@@ -12,6 +12,16 @@
 // relies on wrap-around), then runs the three sum-factorised 1D passes
 // there (z, then y, then x), keeping every intermediate on chip.  The
 // per-row band weights of the tile are staged in shared memory too.
+//
+// The z extent of a launch is a ZSlab: a whole field (nz = m planes, no
+// halo, rows from 0), or one slab of a field that is split over z between
+// the slots of a (stage, space) mesh.  A slab's outputs are its own nz
+// planes, global rows z_off .. z_off + nz; its operand holds them between
+// `halo` planes of each neighbour (exact zeros at the domain ends), so it
+// has nz + 2 * halo planes.  Only the tile loader, the z band rows and the
+// output mask read the ZSlab: taps, weights and summation order per output
+// point are the same in both forms, so a slab's result equals the whole
+// field's bit for bit.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -23,6 +33,18 @@ constexpr int TY = 8;
 constexpr int TZ = 8;
 constexpr int NTHREADS = 256;
 constexpr int QMAX = 8;  // most stages a stage-coupled kernel holds
+
+struct ZSlab {
+  int nz;     // output planes
+  int halo;   // neighbour planes on each side of the operand
+  int z_off;  // global row of output plane 0
+  __host__ __device__ long long out_stride(int m) const { return (long long)nz * m * m; }
+  __host__ __device__ long long in_stride(int m) const {
+    return (long long)(nz + 2 * halo) * m * m;
+  }
+};
+
+__host__ __device__ inline ZSlab whole_field(int m) { return ZSlab{m, 0, 0}; }
 
 template <int P>
 struct Tile {
@@ -71,29 +93,31 @@ __device__ inline void load_band_rows(float* dst, const float* __restrict__ mban
 
 template <int P>
 __device__ inline Bands<P> load_bands(float* smem_bands, const float* __restrict__ mband,
-                                      const float* __restrict__ kband, int m, int z0,
-                                      int y0, int x0) {
+                                      const float* __restrict__ kband, int m, ZSlab zs,
+                                      int z0, int y0, int x0) {
   constexpr int NB = Tile<P>::NB;
   Bands<P> b{smem_bands, smem_bands + 2 * NB * TZ, smem_bands + 2 * NB * (TZ + TY)};
-  load_band_rows<TZ>(b.z, mband, kband, NB, m, z0);
+  load_band_rows<TZ>(b.z, mband, kband, NB, m, zs.z_off + z0);
   load_band_rows<TY>(b.y, mband, kband, NB, m, y0);
   load_band_rows<TX>(b.x, mband, kband, NB, m, x0);
   return b;
 }
 
-// Haloed input tile of one stage field, zero outside the domain.
+// Haloed input tile of one stage field, zero outside the domain; in z it
+// reads the operand's planes (a slab's start `halo` planes below its rows).
 template <int P>
-__device__ inline void load_tile(float* in, const float* __restrict__ u, int m, int z0,
-                                 int y0, int x0) {
+__device__ inline void load_tile(float* in, const float* __restrict__ u, int m, ZSlab zs,
+                                 int z0, int y0, int x0) {
   using T = Tile<P>;
+  const int nz_in = zs.nz + 2 * zs.halo;
   for (int i = threadIdx.x; i < T::IN; i += NTHREADS) {
     int lx = i % T::HX;
     int t = i / T::HX;
     int ly = t % T::HY;
     int lz = t / T::HY;
-    int gx = x0 + lx - P, gy = y0 + ly - P, gz = z0 + lz - P;
+    int gx = x0 + lx - P, gy = y0 + ly - P, gz = z0 + lz - P + zs.halo;
     float v = 0.f;
-    if (gx >= 0 && gx < m && gy >= 0 && gy < m && gz >= 0 && gz < m)
+    if (gx >= 0 && gx < m && gy >= 0 && gy < m && gz >= 0 && gz < nz_in)
       v = __ldg(u + ((long long)gz * m + gy) * m + gx);
     in[i] = v;
   }
@@ -332,9 +356,12 @@ inline cudaError_t allow_smem(K kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-inline dim3 tile_grid(int m, int q) {
-  return dim3((m + TX - 1) / TX, (m + TY - 1) / TY, ((m + TZ - 1) / TZ) * q);
+// blocks of a launch over nz output planes of q stages
+inline dim3 tile_grid(int m, int nz, int q) {
+  return dim3((m + TX - 1) / TX, (m + TY - 1) / TY, ((nz + TZ - 1) / TZ) * q);
 }
+
+inline dim3 tile_grid(int m, int q) { return tile_grid(m, m, q); }
 
 inline dim3 tile_grid2(int m, int q) {
   return dim3((m + TX2 - 1) / TX2, (m + TY2 - 1) / TY2, q);

@@ -13,6 +13,13 @@
 // Ck = My Zk + Ky Zm; M u = Mx Cm, K u = Mx Ck + Kx Cm.  2D: A = My u,
 // B = Ky u; M u = Mx A, K u = Mx B + Kx A.
 //
+// K9b (spirk_mass_stiffness_apply_halo) is the 3D kernel on one z slab of a
+// space-sharded block (ZSlab, common.cuh): u (q, nzl + 2p, m, m) with p
+// planes of each z neighbour, outputs (q, nzl, m, m).  It replaces
+// sharded_mass_stiffness_apply_canon (dealii_spirk_tpu/ops/pallas/sharded.py:
+// fused_mass_stiffness_apply_canon with halo_z=True) and equals the
+// whole-field kernel bit for bit.
+//
 // Bound on the H100: by design DRAM (one field read, two written, about
 // 60 flops per point at p=1).  Two outputs per point are computed and
 // stored at once, so the register state is K4's plus one float.
@@ -24,7 +31,7 @@ template <int P>
 __global__ void __launch_bounds__(NTHREADS)
 mass_stiffness_kernel(const float* __restrict__ u, float* __restrict__ mu_out,
                       float* __restrict__ ku_out, const float* __restrict__ mband,
-                      const float* __restrict__ kband, int m) {
+                      const float* __restrict__ kband, int m, ZSlab zs) {
   using T = Tile<P>;
   extern __shared__ float smem[];
   float* in = smem;
@@ -34,13 +41,13 @@ mass_stiffness_kernel(const float* __restrict__ u, float* __restrict__ mu_out,
   float* Ck = Cm + T::YP;
   float* bands = Ck + T::YP;
 
-  const int nzt = (m + TZ - 1) / TZ;
+  const int nzt = (zs.nz + TZ - 1) / TZ;
   const int iq = blockIdx.z / nzt;
   const int z0 = (blockIdx.z % nzt) * TZ, y0 = blockIdx.y * TY, x0 = blockIdx.x * TX;
-  const long long stage = (long long)iq * m * m * m;
+  const long long stage = iq * zs.out_stride(m);
 
-  Bands<P> bd = load_bands<P>(bands, mband, kband, m, z0, y0, x0);
-  load_tile<P>(in, u + stage, m, z0, y0, x0);
+  Bands<P> bd = load_bands<P>(bands, mband, kband, m, zs, z0, y0, x0);
+  load_tile<P>(in, u + iq * zs.in_stride(m), m, zs, z0, y0, x0);
   __syncthreads();
   mass_stiff_zy<P>(in, Zm, Zk, Cm, Ck, bd);
 #pragma unroll
@@ -48,7 +55,7 @@ mass_stiffness_kernel(const float* __restrict__ u, float* __restrict__ mu_out,
     int lz, ly, lx;
     out_point(s, lz, ly, lx);
     int gz = z0 + lz, gy = y0 + ly, gx = x0 + lx;
-    if (gz < m && gy < m && gx < m) {
+    if (gz < zs.nz && gy < m && gx < m) {
       long long g = stage + ((long long)gz * m + gy) * m + gx;
       float mu, ku;
       mass_stiff_x<P>(Cm, Ck, bd, lz, ly, lx, mu, ku);
@@ -95,13 +102,26 @@ mass_stiffness_2d_kernel(const float* __restrict__ u, float* __restrict__ mu_out
 
 template <int P>
 cudaError_t launch_mass_stiffness(const float* u, float* mu, float* ku, const float* mband,
-                                  const float* kband, int q, int m, cudaStream_t stream) {
+                                  const float* kband, int q, int m, ZSlab zs,
+                                  cudaStream_t stream) {
   const int bytes = Tile<P>::SMEM_FLOATS * sizeof(float);
   cudaError_t err = allow_smem(mass_stiffness_kernel<P>, bytes);
   if (err != cudaSuccess) return err;
-  mass_stiffness_kernel<P><<<tile_grid(m, q), NTHREADS, bytes, stream>>>(u, mu, ku, mband,
-                                                                         kband, m);
+  mass_stiffness_kernel<P><<<tile_grid(m, zs.nz, q), NTHREADS, bytes, stream>>>(
+      u, mu, ku, mband, kband, m, zs);
   return cudaGetLastError();
+}
+
+int mass_stiffness_entry(const float* u, float* mu, float* ku, const float* mband,
+                         const float* kband, int q, int m, ZSlab zs, int p, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (p) {
+    case 1: return launch_mass_stiffness<1>(u, mu, ku, mband, kband, q, m, zs, s);
+    case 2: return launch_mass_stiffness<2>(u, mu, ku, mband, kband, q, m, zs, s);
+    case 3: return launch_mass_stiffness<3>(u, mu, ku, mband, kband, q, m, zs, s);
+    case 4: return launch_mass_stiffness<4>(u, mu, ku, mband, kband, q, m, zs, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <int P>
@@ -121,14 +141,17 @@ cudaError_t launch_mass_stiffness_2d(const float* u, float* mu, float* ku,
 extern "C" int spirk_mass_stiffness_apply(const float* u, float* mu, float* ku,
                                           const float* mband, const float* kband, int q,
                                           int m, int p, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (p) {
-    case 1: return spirk::launch_mass_stiffness<1>(u, mu, ku, mband, kband, q, m, s);
-    case 2: return spirk::launch_mass_stiffness<2>(u, mu, ku, mband, kband, q, m, s);
-    case 3: return spirk::launch_mass_stiffness<3>(u, mu, ku, mband, kband, q, m, s);
-    case 4: return spirk::launch_mass_stiffness<4>(u, mu, ku, mband, kband, q, m, s);
-    default: return cudaErrorInvalidValue;
-  }
+  return spirk::mass_stiffness_entry(u, mu, ku, mband, kband, q, m, spirk::whole_field(m), p,
+                                     stream);
+}
+
+// u: (q, nzl + 2p, m, m), mu and ku: (q, nzl, m, m)
+extern "C" int spirk_mass_stiffness_apply_halo(const float* u, float* mu, float* ku,
+                                               const float* mband, const float* kband,
+                                               int q, int m, int nzl, int z_off, int p,
+                                               void* stream) {
+  return spirk::mass_stiffness_entry(u, mu, ku, mband, kband, q, m,
+                                     spirk::ZSlab{nzl, p, z_off}, p, stream);
 }
 
 extern "C" int spirk_mass_stiffness_apply_2d(const float* u, float* mu, float* ku,

@@ -38,7 +38,7 @@ ms_mix_kernel(const float* __restrict__ u, float* __restrict__ out,
   const int z0 = blockIdx.z * TZ, y0 = blockIdx.y * TY, x0 = blockIdx.x * TX;
   const long long n = (long long)m * m * m;
   for (int i = threadIdx.x; i < (q + 1) * q; i += NTHREADS) mws[i] = mw[i];
-  Bands<P> bd = load_bands<P>(bands, mband, kband, m, z0, y0, x0);
+  Bands<P> bd = load_bands<P>(bands, mband, kband, m, whole_field(m), z0, y0, x0);
 
   float acc[QMAX][T::PTS];
 #pragma unroll
@@ -47,7 +47,7 @@ ms_mix_kernel(const float* __restrict__ u, float* __restrict__ out,
     for (int s = 0; s < T::PTS; ++s) acc[i][s] = 0.f;
 
   for (int j = 0; j < q; ++j) {
-    load_tile<P>(in, u + j * n, m, z0, y0, x0);
+    load_tile<P>(in, u + j * n, m, whole_field(m), z0, y0, x0);
     __syncthreads();
     mass_stiff_zy<P>(in, Zm, Zk, Cm, Ck, bd);
     // coefficients of stage j: Ainv[i, j] on M u_j for every i, tau on

@@ -10,6 +10,14 @@
 // kernel holds a whole plane per grid step in VMEM; here one block owns a
 // 32 x 64 tile with its p-halo (common.cuh).
 //
+// K9a (spirk_stencil_apply_halo) is the same kernel on one z slab of a
+// space-sharded block: u is (q, nzl + 2p, m, m) with p planes of each z
+// neighbour (zeros at the domain ends), out the slab's (q, nzl, m, m), the
+// z band rows those of global planes z_off .. z_off + nzl (ZSlab,
+// common.cuh).  It replaces sharded_stencil_apply_canon
+// (dealii_spirk_tpu/ops/pallas/sharded.py), i.e. fused_stencil_apply_canon
+// with halo_z=True, and equals the whole-field kernel bit for bit.
+//
 // Bound on the H100: by design DRAM (one read, one write of the block,
 // ~50 flops per point at p=1).  This simple version reads each input once
 // from DRAM (halo re-reads hit L2) but measured 18% of the DRAM roof at
@@ -24,7 +32,7 @@ template <int P>
 __global__ void __launch_bounds__(NTHREADS)
 stencil_apply_kernel(const float* __restrict__ u, float* __restrict__ out,
                      const float* __restrict__ mband, const float* __restrict__ kband,
-                     const float* __restrict__ w, int m) {
+                     const float* __restrict__ w, int m, ZSlab zs) {
   using T = Tile<P>;
   extern __shared__ float smem[];
   float* in = smem;
@@ -34,13 +42,13 @@ stencil_apply_kernel(const float* __restrict__ u, float* __restrict__ out,
   float* D = C + T::YP;
   float* bands = D + T::YP;
 
-  const int nzt = (m + TZ - 1) / TZ;
+  const int nzt = (zs.nz + TZ - 1) / TZ;
   const int iq = blockIdx.z / nzt;
   const int z0 = (blockIdx.z % nzt) * TZ, y0 = blockIdx.y * TY, x0 = blockIdx.x * TX;
-  const long long stage = (long long)iq * m * m * m;
+  const long long stage = iq * zs.out_stride(m);
 
-  Bands<P> bd = load_bands<P>(bands, mband, kband, m, z0, y0, x0);
-  load_tile<P>(in, u + stage, m, z0, y0, x0);
+  Bands<P> bd = load_bands<P>(bands, mband, kband, m, zs, z0, y0, x0);
+  load_tile<P>(in, u + iq * zs.in_stride(m), m, zs, z0, y0, x0);
   __syncthreads();
   shifted_zy<P>(in, E, F, C, D, bd, w[2 * iq], w[2 * iq + 1]);
 #pragma unroll
@@ -48,7 +56,7 @@ stencil_apply_kernel(const float* __restrict__ u, float* __restrict__ out,
     int lz, ly, lx;
     out_point(s, lz, ly, lx);
     int gz = z0 + lz, gy = y0 + ly, gx = x0 + lx;
-    if (gz < m && gy < m && gx < m)
+    if (gz < zs.nz && gy < m && gx < m)
       out[stage + ((long long)gz * m + gy) * m + gx] = shifted_x<P>(C, D, bd, lz, ly, lx);
   }
 }
@@ -102,12 +110,25 @@ cudaError_t launch_stencil_apply_2d(const float* u, float* out, const float* mba
 template <int P>
 cudaError_t launch_stencil_apply(const float* u, float* out, const float* mband,
                                  const float* kband, const float* w, int q, int m,
-                                 cudaStream_t stream) {
+                                 ZSlab zs, cudaStream_t stream) {
   const int bytes = Tile<P>::SMEM_FLOATS * sizeof(float);
   cudaError_t err = allow_smem(stencil_apply_kernel<P>, bytes);
   if (err != cudaSuccess) return err;
-  stencil_apply_kernel<P><<<tile_grid(m, q), NTHREADS, bytes, stream>>>(u, out, mband, kband, w, m);
+  stencil_apply_kernel<P><<<tile_grid(m, zs.nz, q), NTHREADS, bytes, stream>>>(
+      u, out, mband, kband, w, m, zs);
   return cudaGetLastError();
+}
+
+int stencil_apply_entry(const float* u, float* out, const float* mband, const float* kband,
+                        const float* w, int q, int m, ZSlab zs, int p, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (p) {
+    case 1: return launch_stencil_apply<1>(u, out, mband, kband, w, q, m, zs, s);
+    case 2: return launch_stencil_apply<2>(u, out, mband, kband, w, q, m, zs, s);
+    case 3: return launch_stencil_apply<3>(u, out, mband, kband, w, q, m, zs, s);
+    case 4: return launch_stencil_apply<4>(u, out, mband, kband, w, q, m, zs, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace spirk
@@ -115,14 +136,16 @@ cudaError_t launch_stencil_apply(const float* u, float* out, const float* mband,
 extern "C" int spirk_stencil_apply(const float* u, float* out, const float* mband,
                                    const float* kband, const float* w, int q, int m, int p,
                                    void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (p) {
-    case 1: return spirk::launch_stencil_apply<1>(u, out, mband, kband, w, q, m, s);
-    case 2: return spirk::launch_stencil_apply<2>(u, out, mband, kband, w, q, m, s);
-    case 3: return spirk::launch_stencil_apply<3>(u, out, mband, kband, w, q, m, s);
-    case 4: return spirk::launch_stencil_apply<4>(u, out, mband, kband, w, q, m, s);
-    default: return cudaErrorInvalidValue;
-  }
+  return spirk::stencil_apply_entry(u, out, mband, kband, w, q, m, spirk::whole_field(m), p,
+                                    stream);
+}
+
+// u: (q, nzl + 2p, m, m), out: (q, nzl, m, m)
+extern "C" int spirk_stencil_apply_halo(const float* u, float* out, const float* mband,
+                                        const float* kband, const float* w, int q, int m,
+                                        int nzl, int z_off, int p, void* stream) {
+  return spirk::stencil_apply_entry(u, out, mband, kband, w, q, m,
+                                    spirk::ZSlab{nzl, p, z_off}, p, stream);
 }
 
 extern "C" int spirk_stencil_apply_2d(const float* u, float* out, const float* mband,

@@ -15,7 +15,9 @@ import numpy as np
 import torch
 
 from .ops.mass_laplace import LevelOps
-from .solvers.gmg import GMGData, GMGPrec
+from .parallel.mesh import SlotMesh
+from .parallel.sharding import ShardedBlock, scatter
+from .solvers.gmg import GMGData, GMGPrec, MeshPrec, scatter_prec
 from .tables import IRKTables
 
 
@@ -64,6 +66,34 @@ def gmg_prec_from_numpy(
         deltas=tuple(_t(a, dtype, device) for a in deltas),
         coarse_inv=_t(coarse_inv, dtype, device),
     )
+
+
+def sharded_block_from_numpy(
+    W, mesh: SlotMesh, *, dtype=torch.float64, device="cpu"
+) -> ShardedBlock:
+    """A whole stage block (q, *spatial) split over the mesh (not counted
+    as an exchange)."""
+    return scatter(_t(W, dtype, device), mesh, kind=None)
+
+
+def sharded_block_to_numpy(block: ShardedBlock) -> np.ndarray:
+    """The whole stage block of a sharded one."""
+    parts = [np.concatenate([t.detach().cpu().numpy() for t in row], axis=1)
+             for row in block.parts]
+    return np.concatenate(parts, axis=0)
+
+
+def mesh_prec_from_numpy(
+    gmg: GMGData, inv_diags, thetas, deltas, coarse_inv, a, dim: int, mesh: SlotMesh,
+) -> MeshPrec:
+    """``gmg_prec_from_numpy`` followed by ``scatter_prec``: the multigrid
+    state of the stage shifts ``a`` on the mesh, on ``gmg``'s dtype and
+    device."""
+    dtype, device = gmg.coarse_mass.dtype, gmg.coarse_mass.device
+    prec = gmg_prec_from_numpy(
+        inv_diags, thetas, deltas, coarse_inv, dtype=dtype, device=device
+    )
+    return scatter_prec(gmg, prec, _t(a, dtype, device), dim, mesh)
 
 
 def irk_tables_from_numpy(n_stages: int, **arrays) -> IRKTables:

@@ -37,7 +37,15 @@ block counts under ``<key>_2d``), with the Pallas kernels they replace
 * K5 ``mass_stiffness_apply`` — ``fused_mass_stiffness_apply_canon`` and
   its compact-layout twin ``fused_mass_stiffness_apply``: (M u_i, K u_i)
   from one read, 3D and 2D (``_make_kernel_ms_2d``); the outer vmult of
-  ``irk`` and of 2D ``irk_batched``.
+  ``irk`` and of 2D ``irk_batched``;
+* K9a-K9d ``stencil_apply_halo``, ``mass_stiffness_apply_halo``,
+  ``cheb_iter_halo``, ``cheb_iter_dg_halo`` — K4, K5, K3 and K3dg on one z
+  slab of a block that a (stage, space) mesh splits over z: the operand
+  carries p planes of each z neighbour (``ops/cuda/sharded.py`` exchanges
+  them), the outputs are the slab's own planes, and ``ops`` is the slab's
+  (``mass_laplace.slab_ops``: its first global plane ``z_off``).  They
+  replace ``dealii_spirk_tpu/ops/pallas/sharded.py``'s ``halo_z=True``
+  forms and equal the whole-field kernels bit for bit.
 """
 
 from __future__ import annotations
@@ -63,6 +71,10 @@ LAUNCHES = {
     "stencil_apply_2d": 0,
     "mass_stiffness_apply": 0,
     "mass_stiffness_apply_2d": 0,
+    "stencil_apply_halo": 0,
+    "mass_stiffness_apply_halo": 0,
+    "cheb_iter_halo": 0,
+    "cheb_iter_dg_halo": 0,
 }
 
 
@@ -105,9 +117,11 @@ def cheb_diag(ops: LevelOps, a, b, like: torch.Tensor) -> torch.Tensor:
     """The (q, m, m, m) Jacobi diagonal of a_i M + b K from the level's 1D
     diagonals, in the JAX package's order (``_dg_z``):
     (a zm ym + b (zk ym + zm yk)) xm + (b zm ym) xk; ``like`` (a stage
-    block) gives the stage count."""
+    block) gives the stage count and, for a slab's ``ops``, the z rows
+    (``z_off .. z_off + like.shape[1]``)."""
     dm, dk = ops.mass_diag, ops.stiff_diag
-    zm, zk = dm[:, None, None], dk[:, None, None]
+    rows = slice(ops.z_off, ops.z_off + like.shape[1])
+    zm, zk = dm[rows, None, None], dk[rows, None, None]
     ym, yk = dm[None, :, None], dk[None, :, None]
     zmym = zm * ym
     aq = per_stage(a, like)
@@ -119,6 +133,37 @@ def cheb_iter_dg_ref(ops: LevelOps, a, b, c1, c2, d, r, x):
     diag = cheb_diag(ops, a, b, d)
     return cheb_chain(
         lambda u: stencil_apply_ref(ops, a, b, u), lambda t: t / diag, c1, c2, d, r, x
+    )
+
+
+def _interior(ops: LevelOps, t: torch.Tensor) -> torch.Tensor:
+    return t[:, ops.p : t.shape[1] - ops.p]
+
+
+def stencil_apply_halo_ref(ops: LevelOps, a, b, u_h: torch.Tensor) -> torch.Tensor:
+    """``stencil_apply_ref`` on a haloed slab (q, nzl + 2p, m, m) with the
+    slab's band rows along z, the slab's own planes kept."""
+    return _interior(ops, stencil_apply_ref(ops, a, b, u_h)).contiguous()
+
+
+def mass_stiffness_apply_halo_ref(ops: LevelOps, u_h: torch.Tensor):
+    mu, ku = mass_stiffness_apply_ref(ops, u_h)
+    return _interior(ops, mu).contiguous(), _interior(ops, ku).contiguous()
+
+
+def cheb_iter_halo_ref(ops: LevelOps, a, b, c1, c2, d_h, r, x, invd):
+    """``cheb_iter_ref`` on a slab: only ``d_h`` carries the halo."""
+    return cheb_chain(
+        lambda _d: stencil_apply_halo_ref(ops, a, b, d_h), lambda t: invd * t,
+        c1, c2, _interior(ops, d_h), r, x,
+    )
+
+
+def cheb_iter_dg_halo_ref(ops: LevelOps, a, b, c1, c2, d_h, r, x):
+    diag = cheb_diag(ops, a, b, r)
+    return cheb_chain(
+        lambda _d: stencil_apply_halo_ref(ops, a, b, d_h), lambda t: t / diag,
+        c1, c2, _interior(ops, d_h), r, x,
     )
 
 
@@ -190,9 +235,14 @@ def _launch(name: str, *args) -> None:
     from .build import load_library
 
     lib = load_library()
-    stream = torch.cuda.current_stream().cuda_stream
     conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    err = getattr(lib, name)(*conv, stream)
+    # on the first tensor's device (the slots of a mesh may lie on several)
+    device = args[0].device
+    if device.index == torch.cuda.current_device():
+        err = getattr(lib, name)(*conv, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            err = getattr(lib, name)(*conv, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         msg = lib.spirk_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
@@ -269,6 +319,89 @@ def cheb_iter_dg(ops: LevelOps, a, b, c1, c2, d, r, x):
         ops.mass_band, ops.stiff_band, w, q, m, p,
     )
     LAUNCHES["cheb_iter_dg"] += 1
+    return r_out, d_out, x_out
+
+
+def _check_slab(ops: LevelOps, u_h: torch.Tensor, name: str) -> tuple[int, int, int, int]:
+    """(q, m, p, nzl) of a haloed slab operand (q, nzl + 2p, m, m)."""
+    if u_h.ndim != 4 or ops.z_mass_band is None:
+        raise ValueError(f"{name}: the halo kernels take a 3D slab and its slab_ops")
+    q, m, p = u_h.shape[0], ops.m, ops.p
+    nzl = u_h.shape[1] - 2 * p
+    if nzl < 1 or ops.z_off < 0 or ops.z_off + nzl > m:
+        raise ValueError(f"{name}: planes {ops.z_off}..{ops.z_off + nzl} leave [0, {m})")
+    _check_field(u_h, (q, nzl + 2 * p, m, m), name)
+    for band in (ops.mass_band, ops.stiff_band):
+        _check_field(band, (2 * p + 1, m), "band table")
+        if band.device != u_h.device:
+            raise ValueError("band tables and fields must share a device")
+    if not 1 <= p <= 4:
+        raise ValueError(f"the CUDA kernels take degrees 1-4, got p={p}")
+    return q, m, p, nzl
+
+
+def stencil_apply_halo(ops: LevelOps, a, b, u_h: torch.Tensor) -> torch.Tensor:
+    """K9a: (a_i M + b K) u_i on a z slab; ``u_h`` (q, nzl + 2p, m, m) holds
+    p planes of each z neighbour, the result is (q, nzl, m, m)."""
+    if _on_cpu(u_h, ops.mass_band):
+        return stencil_apply_halo_ref(ops, a, b, u_h)
+    q, m, p, nzl = _check_slab(ops, u_h, "u_h")
+    out = torch.empty((q, nzl, m, m), dtype=u_h.dtype, device=u_h.device)
+    w = _coefs(q, u_h.device, a, b)
+    _launch("spirk_stencil_apply_halo", u_h, out, ops.mass_band, ops.stiff_band, w,
+            q, m, nzl, ops.z_off, p)
+    LAUNCHES["stencil_apply_halo"] += 1
+    return out
+
+
+def mass_stiffness_apply_halo(ops: LevelOps, u_h: torch.Tensor):
+    """K9b: (M u_i, K u_i) on a z slab, from one read of ``u_h``."""
+    if _on_cpu(u_h, ops.mass_band):
+        return mass_stiffness_apply_halo_ref(ops, u_h)
+    q, m, p, nzl = _check_slab(ops, u_h, "u_h")
+    mu = torch.empty((q, nzl, m, m), dtype=u_h.dtype, device=u_h.device)
+    ku = torch.empty_like(mu)
+    _launch("spirk_mass_stiffness_apply_halo", u_h, mu, ku, ops.mass_band, ops.stiff_band,
+            q, m, nzl, ops.z_off, p)
+    LAUNCHES["mass_stiffness_apply_halo"] += 1
+    return mu, ku
+
+
+def cheb_iter_halo(ops: LevelOps, a, b, c1, c2, d_h, r, x, invd):
+    """K9c: one Chebyshev step on a z slab; only ``d_h`` carries the halo,
+    ``r``, ``x``, ``invd`` and the results (r', d', x') are (q, nzl, m, m)."""
+    if _on_cpu(d_h, r, x, invd, ops.mass_band):
+        return cheb_iter_halo_ref(ops, a, b, c1, c2, d_h, r, x, invd)
+    q, m, p, nzl = _check_slab(ops, d_h, "d_h")
+    for t, name in ((r, "r"), (x, "x"), (invd, "invd")):
+        _check_field(t, (q, nzl, m, m), name)
+    r_out, d_out, x_out = (torch.empty_like(r) for _ in range(3))
+    w = _coefs(q, d_h.device, a, b, c1, c2)
+    _launch(
+        "spirk_cheb_iter_halo", d_h, r, x, invd, r_out, d_out, x_out,
+        ops.mass_band, ops.stiff_band, w, q, m, nzl, ops.z_off, p,
+    )
+    LAUNCHES["cheb_iter_halo"] += 1
+    return r_out, d_out, x_out
+
+
+def cheb_iter_dg_halo(ops: LevelOps, a, b, c1, c2, d_h, r, x):
+    """K9d: K9c with the Jacobi diagonal rebuilt per point from the level's
+    1D diagonals at the slab's global rows (no D^-1 field)."""
+    if _on_cpu(d_h, r, x, ops.mass_band):
+        return cheb_iter_dg_halo_ref(ops, a, b, c1, c2, d_h, r, x)
+    q, m, p, nzl = _check_slab(ops, d_h, "d_h")
+    for t, name in ((r, "r"), (x, "x")):
+        _check_field(t, (q, nzl, m, m), name)
+    for t in (ops.mass_diag, ops.stiff_diag):
+        _check_field(t, (m,), "1D diagonal")
+    r_out, d_out, x_out = (torch.empty_like(r) for _ in range(3))
+    w = _coefs(q, d_h.device, a, b, c1, c2)
+    _launch(
+        "spirk_cheb_iter_dg_halo", d_h, r, x, ops.mass_diag, ops.stiff_diag,
+        r_out, d_out, x_out, ops.mass_band, ops.stiff_band, w, q, m, nzl, ops.z_off, p,
+    )
+    LAUNCHES["cheb_iter_dg_halo"] += 1
     return r_out, d_out, x_out
 
 

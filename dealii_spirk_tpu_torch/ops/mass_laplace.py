@@ -35,6 +35,13 @@ class LevelOps:
     stiff_band: torch.Tensor  # (2p+1, m)
     mass_diag: torch.Tensor  # (m,)
     stiff_diag: torch.Tensor  # (m,)
+    # One z slab of a 3D level split over the space axis of a mesh
+    # (``slab_ops``): its first global plane, and the band rows of its haloed
+    # planes (2p+1, nzl + 2p), which the plain operators take along z.  None
+    # on a whole level.
+    z_off: int = 0
+    z_mass_band: torch.Tensor | None = None
+    z_stiff_band: torch.Tensor | None = None
 
     @property
     def m(self) -> int:
@@ -57,16 +64,47 @@ def level_ops(level: Level1D, dtype=torch.float64, device="cpu") -> LevelOps:
     )
 
 
+def slab_ops(ops: LevelOps, z_off: int, nzl: int, device=None) -> LevelOps:
+    """``ops`` for the slab of planes ``z_off .. z_off + nzl`` with a p-plane
+    halo on either side, on ``device``: haloed plane j is global plane
+    ``z_off - p + j`` and takes that row of the bands (zero weights where it
+    lies outside the domain; a halo plane's own output is dropped)."""
+    p, m = ops.p, ops.m
+    device = ops.mass_band.device if device is None else device
+    rows = torch.arange(z_off - p, z_off + nzl + p)
+    inside = (rows >= 0) & (rows < m)
+    rows = rows.clamp(0, m - 1).to(ops.mass_band.device)
+    inside = inside.to(ops.mass_band.device)
+
+    def cut(band):
+        return (band[:, rows] * inside).to(device).contiguous()
+
+    return LevelOps(
+        mass_band=ops.mass_band.to(device),
+        stiff_band=ops.stiff_band.to(device),
+        mass_diag=ops.mass_diag.to(device),
+        stiff_diag=ops.stiff_diag.to(device),
+        z_off=z_off,
+        z_mass_band=cut(ops.mass_band),
+        z_stiff_band=cut(ops.stiff_band),
+    )
+
+
 def _spatial_axes(u_ndim: int, dim: int) -> tuple[int, ...]:
     return tuple(range(u_ndim - dim, u_ndim))
 
 
+def _band(whole, z_slab, u, axis: int):
+    # a slab's z axis (3D, third from last) takes its own band rows
+    return whole if z_slab is None or axis % u.ndim != u.ndim - 3 else z_slab
+
+
 def _m(ops: LevelOps, u, axis: int):
-    return apply_band(ops.mass_band, u, axis)
+    return apply_band(_band(ops.mass_band, ops.z_mass_band, u, axis), u, axis)
 
 
 def _k(ops: LevelOps, u, axis: int):
-    return apply_band(ops.stiff_band, u, axis)
+    return apply_band(_band(ops.stiff_band, ops.z_stiff_band, u, axis), u, axis)
 
 
 def apply_mass(ops: LevelOps, u: torch.Tensor, dim: int) -> torch.Tensor:

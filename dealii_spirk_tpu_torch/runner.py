@@ -1,11 +1,11 @@
 """Run loop: time stepping, error reporting, convergence table.
 
 Port of ``dealii_spirk_tpu/runner.py::run_config`` (reference
-``HeatEquation::Problem::run`` + ``main()``, ``main.cc:3014-3791``) for one
-device: build the problem, select the scheme, interpolate the initial
-condition, loop timesteps with end-time truncation, report per-step
-L2/Linf errors and fill one convergence-table row.  The device mesh and
-the paraview output are not ported yet.
+``HeatEquation::Problem::run`` + ``main()``, ``main.cc:3014-3791``): build
+the problem, for a stage-parallel scheme the (stage, space) slot mesh,
+select the scheme, interpolate the initial condition, loop timesteps with
+end-time truncation, report per-step L2/Linf errors and fill one
+convergence-table row.  The paraview output is not ported yet.
 """
 
 from __future__ import annotations
@@ -21,20 +21,37 @@ def run_config(
     table: ConvergenceTable | None = None,
     *,
     device="cuda",
+    mesh=None,
+    slots: int | None = None,
     verbose: bool = True,
     **scheme_options,
 ) -> dict:
     """Run one configuration on ``device`` (the GPU unless asked for
     ``"cpu"``; raises when there is no CUDA device); returns a summary
-    dict and fills ``table``.  ``scheme_options`` go to the scheme's
-    constructor (``kernels``, ``tables``, ``start``)."""
+    dict and fills ``table``.  A stage-parallel scheme runs on ``mesh``, or
+    on the mesh that ``make_mesh`` builds from ``slots`` slots on
+    ``device`` (default: the stage axis size, a (stage, 1) mesh) and the
+    configuration's MaxRanks, DoRowMajor and Padding.  ``scheme_options``
+    go to the scheme's constructor (``kernels``, ``tables``, ``start``)."""
     if table is None:
         table = ConvergenceTable()
     say = print if verbose else (lambda *a, **k: None)
 
     problem = HeatProblem(params, device)
     sp = problem.space
-    scheme = make_scheme(problem, params, **scheme_options)
+    if params.is_stage_parallel and mesh is None:
+        from .parallel.mesh import make_mesh
+
+        n_slots = params.stage_axis_size if slots is None else slots
+        mesh = make_mesh(
+            params.stage_axis_size,
+            devices=[problem.device] * n_slots,
+            max_ranks=params.max_ranks,
+            do_row_major=params.do_row_major,
+            padding=params.padding,
+        )
+    scheme = make_scheme(problem, params, mesh=mesh, **scheme_options)
+    mesh = getattr(scheme, "mesh", None)  # the scheme may narrow the mesh
     if params.do_output_paraview:
         say("NOTE: paraview output is not ported yet; DoOutputParaview ignored")
 
@@ -43,14 +60,24 @@ def run_config(
         f"Number of active cells: {sp.n_cells_total}\n"
         f"Number of degrees of freedom: {sp.n_dofs}\n"
     )
-    # table parity: reference main.cc:3387-3398 (one device: 1 x 1 grid)
+    if mesh is not None:
+        # virtual-topology dump (reference main.cc:3700-3740): which slot
+        # sits at each (stage, space) coordinate, and on which device
+        say("Slot grid (stage x space):")
+        for ids, devs in zip(mesh.slot_ids, mesh.devices):
+            say("  " + " ".join(f"{k:3d}" for k in ids) + "   on " + " ".join(map(str, devs)))
+
+    # table parity: reference main.cc:3387-3398
+    n_slots = mesh.slot_ids.size if mesh is not None else 1
     table.add_value("n_levels", sp.refinement + 1)
     table.add_value("n_cells", sp.n_cells_total)
     table.add_value("fe_degree", params.fe_degree)
     table.add_value("n_dofs", sp.n_dofs)
     table.add_value("n_stages", params.irk_stages)
-    for col in ("n_procs", "n_procs_global", "n_procs_row", "n_procs_column"):
-        table.add_value(col, 1)
+    table.add_value("n_procs", n_slots if slots is None else slots)
+    table.add_value("n_procs_global", n_slots)
+    table.add_value("n_procs_row", mesh.n_stage if mesh is not None else 1)
+    table.add_value("n_procs_column", mesh.n_space if mesh is not None else 1)
 
     u = problem.initial_condition()
     time = 0.0

@@ -163,12 +163,15 @@ class RadauScheme(SchemeBase):
     def tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=self.dtype, device=self.device)
 
-    def rhs_fn(self, u, t, tau):
+    def stage_rhs(self, u, t, tau):
+        """R_i = F(t + (c_i - 1) tau) - K u as a (q, *spatial) block."""
         tf = stage_times_factor(self.c_vec, t, tau, self.dim)
         W = self.problem.stage_load(tf)
-        W = W - apply_stiffness(self.fine, u, self.dim)[None]
+        return W - apply_stiffness(self.fine, u, self.dim)[None]
+
+    def rhs_fn(self, u, t, tau):
         # the A^-1 mix of the rhs stays the plain GEMM (once per step)
-        return st.stage_mix_ref(self.A_inv, W)
+        return st.stage_mix_ref(self.A_inv, self.stage_rhs(u, t, tau))
 
     def update_fn(self, u, W, tau):
         return u + tau * torch.tensordot(self.b_vec, W, dims=1)

@@ -20,6 +20,17 @@ structure runs the plain torch operators.  The sequential ``irk`` scheme
 runs it on one stage at a time with ``stage_prec``.  Grid transfers are
 dense 1D contractions (``apply_dense_1d``) and the coarse solve a batched
 dense inverse, as the JAX package leaves both to XLA.
+
+With ``mesh=`` the V-cycle runs on a (stage, space) slot mesh (the JAX
+package's ``vcycle_canon(mesh=)``): ``scatter_prec`` splits the per-level
+state once, the levels that ``canon_shardable`` admits smooth and take
+residuals through the space-sharded layer (``ops/cuda/sharded.py``: the
+halo kernels K9a, K9c, K9d and p-plane exchanges), their z transfers are
+h-plane exchanges and local contractions, and a level too small to split is
+gathered onto the first space slot of its stage row, solved there by the
+unsharded level code on that row's stages and scattered back (the
+reference coarsens onto fewer ranks the same way,
+``preconditioner.h:287-339``).
 """
 
 from __future__ import annotations
@@ -31,9 +42,13 @@ import numpy as np
 import torch
 
 from ..fem.grid import Space
+from ..ops.cuda import sharded as shk
 from ..ops.cuda import stencil as st
 from ..ops.mass_laplace import LevelOps, apply_shifted_batched, level_ops, operator_diagonal
+from ..ops.banded import apply_dense_1d
 from ..ops.transfer import prolong, restrict
+from ..parallel.mesh import SlotMesh
+from ..parallel.sharding import ShardedBlock, canon_shardable, scatter, send, z_partition
 from .chebyshev import chebyshev_apply, estimate_chebyshev_range
 
 SMOOTHER_DEGREE = 5  # reference preconditioner.h:222
@@ -227,6 +242,97 @@ def stage_prec(prec: GMGPrec, i: int) -> GMGPrec:
     )
 
 
+def _to_device(obj, device):
+    """A frozen dataclass of tensors (and tuples of them) on ``device``."""
+    def move(v):
+        if isinstance(v, torch.Tensor):
+            return v.to(device)
+        if isinstance(v, tuple):
+            return tuple(move(x) for x in v)
+        if isinstance(v, (LevelOps, GMGData, GMGPrec)):
+            return _to_device(v, device)
+        return v
+
+    return type(obj)(**{k: move(v) for k, v in vars(obj).items()})
+
+
+def row_prec(prec: GMGPrec, rows: slice) -> GMGPrec:
+    """The stages ``rows`` of a stage-batched ``GMGPrec``."""
+    return GMGPrec(
+        inv_diags=tuple(d[rows] for d in prec.inv_diags),
+        thetas=tuple(t[rows] for t in prec.thetas),
+        deltas=tuple(d[rows] for d in prec.deltas),
+        coarse_inv=prec.coarse_inv[rows],
+    )
+
+
+@dataclass(frozen=True)
+class MeshPrec:
+    """``GMGPrec`` on a slot mesh (``scatter_prec``).  Per level l:
+    ``levels[l]`` the slab operators of every slot and ``inv_diags[l]`` the
+    split D^-1, or None where the level is not sharded; ``restricts[l]`` /
+    ``prolongs[l]`` the z transfers between levels l and l + 1 where level
+    l + 1 is sharded, with ``P[l]`` the 1D prolongation on every slot's
+    device for the y and x passes.  ``rows[i]`` is stage row i's unsharded
+    state (GMGData, GMGPrec, a) on its first slot's device, which solves
+    the levels that are not sharded."""
+
+    mesh: SlotMesh
+    levels: tuple
+    inv_diags: tuple
+    thetas: tuple[torch.Tensor, ...]
+    deltas: tuple[torch.Tensor, ...]
+    restricts: tuple
+    prolongs: tuple
+    P: tuple
+    rows: tuple
+
+
+def sharded_levels(gmg: GMGData, dim: int, n_space: int) -> list[bool]:
+    """Which levels run through the sharded layer: 3D, smoothed, admitted by
+    ``canon_shardable``, and so is every finer level."""
+    out, ok = [], dim == 3
+    for l in reversed(range(len(gmg.level_ops))):
+        ops = gmg.level_ops[l]
+        ok = ok and l > 0 and canon_shardable((ops.m,) * dim, ops.p, dim, n_space)
+        out.append(ok)
+    return out[::-1]
+
+
+def scatter_prec(gmg: GMGData, prec: GMGPrec, a: torch.Tensor, dim: int,
+                 mesh: SlotMesh) -> MeshPrec:
+    """Split the multigrid state over the mesh, once per ``gmg_reinit``."""
+    q = a.shape[0]
+    ql = q // mesh.n_stage
+    sharded = sharded_levels(gmg, dim, mesh.n_space)
+    n = len(gmg.level_ops)
+    levels = tuple(
+        shk.shard_level(gmg.level_ops[l], mesh) if sharded[l] else None for l in range(n)
+    )
+    inv_diags = tuple(
+        scatter(prec.inv_diags[l], mesh, kind=None) if sharded[l] else None for l in range(n)
+    )
+    # transfers between levels l and l + 1, where level l + 1 is sharded
+    pairs = [(l, gmg.prolongs[l]) for l in range(n - 1)]
+    restricts = tuple(shk.transfer_z(P.T, mesh) if sharded[l + 1] else None for l, P in pairs)
+    prolongs = tuple(shk.transfer_z(P, mesh) if sharded[l + 1] else None for l, P in pairs)
+    Ps = tuple(
+        tuple(
+            tuple(P.to(mesh.device(i, j)) for j in range(mesh.n_space))
+            for i in range(mesh.n_stage)
+        ) if sharded[l + 1] else None
+        for l, P in pairs
+    )
+    rows = []
+    for i in range(mesh.n_stage):
+        dev, sl = mesh.device(i, 0), slice(i * ql, (i + 1) * ql)
+        rows.append((_to_device(gmg, dev), _to_device(row_prec(prec, sl), dev), a[sl].to(dev)))
+    return MeshPrec(
+        mesh=mesh, levels=levels, inv_diags=inv_diags, thetas=prec.thetas,
+        deltas=prec.deltas, restricts=restricts, prolongs=prolongs, P=Ps, rows=tuple(rows),
+    )
+
+
 def _coarse_solve(prec: GMGPrec, r: torch.Tensor) -> torch.Tensor:
     q = r.shape[0]
     x = torch.bmm(prec.coarse_inv, r.reshape(q, -1, 1))
@@ -242,9 +348,14 @@ def vcycle(
     dim: int,
     *,
     kernels: bool,
-) -> torch.Tensor:
+    mesh: SlotMesh | None = None,
+    top: int | None = None,
+):
     """One stage-batched V-cycle approximating (a_i M + b K)^-1 r_i
-    (``a``, ``prec`` and ``r`` share the stage axis).
+    (``a``, ``prec`` and ``r`` share the stage axis).  ``top``: start at
+    that level instead of the finest.  ``mesh``: ``prec`` is a
+    ``MeshPrec`` and ``r`` a ``ShardedBlock`` on that mesh (see the module
+    docstring); the result is one too.
 
     Per level: pre-smoothing from a zero initial guess, the residual
     ``r - A x`` restricted to the next coarser level, the coarse
@@ -253,6 +364,8 @@ def vcycle(
     ``Multigrid`` as configured by the reference (one V-cycle per inner
     solve when InnerTolerance == 0, reference ``main.cc:1126-1148``).
     """
+    if mesh is not None:
+        return _vcycle_mesh(prec, a, b, r, dim, kernels=kernels)
     apply_fn = st.stencil_apply if kernels else st.stencil_apply_ref
     fused = kernels and dim == 3  # K3 is 3D; 2D chains its step over K4-2D
 
@@ -303,4 +416,79 @@ def vcycle(
         x = x + prolong(gmg.prolongs[l - 1], xc, dim)
         return smooth(l, rl, x0=x)
 
-    return solve(len(gmg.level_ops) - 1, r)
+    return solve(len(gmg.level_ops) - 1 if top is None else top, r)
+
+
+def _vcycle_mesh(mp: MeshPrec, a, b, r: ShardedBlock, dim: int, *, kernels: bool) -> ShardedBlock:
+    """``vcycle`` on the mesh of ``mp``."""
+    mesh = mp.mesh
+
+    def smooth(l: int, rl: ShardedBlock, x0: ShardedBlock | None = None):
+        level = mp.levels[l]
+        # K9d on the levels K3dg smooths unsharded (the whole level's size
+        # decides, so both forms pick the same levels)
+        dg = kernels and cheb_diag_level(level.m, dim)
+        invd = None if dg else mp.inv_diags[l]
+        if dg:
+            diag = shk.sharded_cheb_diag(level, a, b, rl)
+
+        return chebyshev_apply(
+            lambda u: shk.sharded_stencil_apply(level, a, b, u, kernels=kernels),
+            lambda c1, c2, d, rr, x: shk.sharded_cheb_iter(
+                level, a, b, c1, c2, d, rr, x, invd, kernels=kernels
+            ),
+            (lambda t: t / diag) if dg else (lambda t: invd * t),
+            mp.thetas[l],
+            mp.deltas[l],
+            rl,
+            x0=x0,
+            degree=SMOOTHER_DEGREE,
+        )
+
+    def transfer(z_plan, mats, u: ShardedBlock, transpose: bool) -> ShardedBlock:
+        """z through the sharded contraction, then y and x on every slot."""
+        u = shk.sharded_transfer_z(z_plan, u)
+        parts = []
+        for i, row in enumerate(u.parts):
+            parts.append([])
+            for j, t in enumerate(row):
+                mat = mats[i][j].T if transpose else mats[i][j]
+                for ax in range(2, t.ndim):
+                    t = apply_dense_1d(mat, t, ax)
+                parts[-1].append(t.contiguous())
+        return ShardedBlock(mesh, parts, u.one_lane)
+
+    def solve_rows(l: int, rl: ShardedBlock) -> ShardedBlock:
+        """Level l is not sharded: every stage row gathers its slabs onto
+        its first space slot, runs the unsharded levels l..0 on its own
+        stages there and scatters the result back."""
+        parts = []
+        for i, row in enumerate(rl.parts):
+            dev = mesh.device(i, 0)
+            whole = torch.cat(
+                [row[0]] + [send(t, dev, "coarse_gather") for t in row[1:]], dim=1
+            ) if len(row) > 1 else row[0]
+            gmg_i, prec_i, a_i = mp.rows[i]
+            x = vcycle(gmg_i, prec_i, a_i, b, whole, dim, kernels=kernels, top=l)
+            if len(row) == 1:
+                parts.append([x])
+                continue
+            cuts = z_partition(x.shape[1], mesh.n_space)
+            parts.append([
+                (x[:, z0:z1] if j == 0
+                 else send(x[:, z0:z1], mesh.device(i, j), "coarse_gather")).contiguous()
+                for j, (z0, z1) in enumerate(cuts)
+            ])
+        return ShardedBlock(mesh, parts, rl.one_lane)
+
+    def solve(l: int, rl: ShardedBlock) -> ShardedBlock:
+        level = mp.levels[l]
+        if level is None:
+            return solve_rows(l, rl)
+        x = smooth(l, rl)
+        res = rl - shk.sharded_stencil_apply(level, a, b, x, kernels=kernels)
+        xc = solve(l - 1, transfer(mp.restricts[l - 1], mp.P[l - 1], res, True))
+        x = x + transfer(mp.prolongs[l - 1], mp.P[l - 1], xc, False)
+        return smooth(l, rl, x0=x)
+
+    return solve(len(mp.levels) - 1, r)

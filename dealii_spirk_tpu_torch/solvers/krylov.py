@@ -23,6 +23,12 @@ compiled graph is static; a dynamic loop that allocates basis vectors as
 it goes gives the same iterates as one long restart cycle without it.
 GMRES keeps the small Hessenberg/Givens arithmetic on the host in numpy
 at the field's dtype.
+
+The solvers touch their vectors only through arithmetic with vectors,
+numbers and per-lane coefficients, ``_dot``, ``_where`` and ``_zeros_like``,
+so a plain tensor and a ``ShardedBlock`` of a slot mesh
+(``parallel/sharding.py``: per-slot partial sums added in a fixed order)
+run through the same code, with the same one host read per iteration.
 """
 
 from __future__ import annotations
@@ -42,7 +48,9 @@ COMPACT_GRID_DOFS = 8_000_000
 COMPACT_BASIS = 12
 
 
-def _dot(a: torch.Tensor, b: torch.Tensor, batch: bool) -> torch.Tensor:
+def _dot(a, b, batch: bool) -> torch.Tensor:
+    if not isinstance(a, torch.Tensor):
+        return a.dot(b, batch)
     if batch:
         return torch.sum(a * b, dim=tuple(range(1, a.ndim)))
     return torch.sum(a * b)
@@ -52,6 +60,15 @@ def _expand(s: torch.Tensor, ref: torch.Tensor, batch: bool) -> torch.Tensor:
     if batch:
         return s.reshape(s.shape + (1,) * (ref.ndim - 1))
     return s
+
+
+def _zeros_like(v):
+    return torch.zeros_like(v) if isinstance(v, torch.Tensor) else v.zeros_like()
+
+
+def _where(mask: torch.Tensor, a, b):
+    """``a`` where the (lane-shaped) mask holds, else ``b``."""
+    return torch.where(mask, a, b) if isinstance(a, torch.Tensor) else a.select(mask, b)
 
 
 def _eps_floor(dtype: torch.dtype) -> float:
@@ -84,7 +101,7 @@ def pcg(
     if M is None:
         M = lambda r: r
     if x0 is None:
-        x = torch.zeros_like(b)
+        x = _zeros_like(b)
         r = b
     else:
         x = x0
@@ -111,7 +128,7 @@ def pcg(
         beta = torch.where(rz != 0, rz_new / torch.where(rz != 0, rz, 1.0), zero)
         bm = _expand(torch.where(active, beta, zero), x, batch)
         keep = _expand(active, x, batch)
-        p = torch.where(keep, z + bm * p, p)
+        p = _where(keep, z + bm * p, p)
         rz = torch.where(active, rz_new, rz)
         rnorm = torch.where(active, torch.sqrt(_dot(r, r, batch)), rnorm)
         iters = iters + active.to(torch.int64)
@@ -135,7 +152,7 @@ def cg_lanczos_extremal_eigs(
     per lane when ``batch``."""
     if M is None:
         M = lambda r: r
-    x = torch.zeros_like(b)
+    x = _zeros_like(b)
     r = b
     z = M(b)
     p = z
@@ -270,7 +287,7 @@ def _gmres_lanes(
         act = active.reshape(active.shape + (1,) * (np.ndim(new) - 1))
         return np.where(act, new, old)
 
-    x = torch.zeros_like(b)
+    x = _zeros_like(b)
     r, carry = Ms(b, carry)
     res = norms(r)
     tol = np.maximum(f(abstol), f(max(reltol, _eps_floor(b.dtype))) * res)
@@ -339,7 +356,7 @@ def _gmres_lanes(
                 y[lane, i] = (
                     g[lane, i] - H[lane, i, i + 1 : kl] @ y[lane, i + 1 : kl]
                 ) / H[lane, i, i]
-        dx = torch.zeros_like(x)
+        dx = _zeros_like(x)
         for j in range(int(n_cols.max(initial=0))):
             dx = dx + ex(y[:, j]) * V[j]
         x = x + dx

@@ -7,7 +7,9 @@ on one CUDA device.
 Runs the path's configuration from ``chip_smoke.PATHS`` (P1: 3D
 ``irk_batched``, q=4; P2: 3D ``irk``, q=5; P3: 2D ``irk_batched``, q=4;
 P4: 3D ``complex_irk_batched``, q=5, refinement 8; P5: 3D ``complex_irk``
-(PRESB), q=5; all MatrixFree + GMG, InnerTolerance 0, OuterTolerance
+(PRESB), q=5; P6: 3D ``spirk``, q=5, on a (5, 2) slot mesh; P7: 3D
+``spirk``, q=2, refinement 8, on a (2, 2) slot mesh — the slots of
+``chip_smoke.SLOTS``, all on the one card; all MatrixFree + GMG, InnerTolerance 0, OuterTolerance
 1e-4, Q1, f32, dt 0.1) for two warm-up steps, then profiles the next step with
 ``torch.profiler``: the step's wall time (host clock
 around work that ends in a synchronise), the summed device time of its
@@ -31,12 +33,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main(argv=None) -> int:
-    from chip_smoke import PATHS
+    from chip_smoke import PATHS, SLOTS
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--path", default="P1", choices=tuple(PATHS))
     ap.add_argument("--refinement", type=int, default=None,
-                    help="default: the path's own (7, 7, 10, 8, 7)")
+                    help="default: the path's own (7, 7, 10, 8, 7, 7, 8)")
     ap.add_argument("--plain", action="store_true")
     ap.add_argument("--trace", default=None)
     ap.add_argument("--top", type=int, default=12)
@@ -54,7 +56,14 @@ def main(argv=None) -> int:
     params = Parameters.from_dict(cfg, dim=dim)
     device = torch.device("cuda", 0)
     problem = HeatProblem(params, device)
-    scheme = make_scheme(problem, params, kernels=not args.plain)
+    mesh = None
+    if args.path in SLOTS:
+        from dealii_spirk_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(params.stage_axis_size, devices=[device] * SLOTS[args.path],
+                         max_ranks=params.max_ranks, do_row_major=params.do_row_major,
+                         padding=params.padding)
+    scheme = make_scheme(problem, params, kernels=not args.plain, mesh=mesh)
     tau = params.time_step_size
     u = scheme.solve_step(problem.initial_condition(), 1, tau, tau)
     u = scheme.solve_step(u, 2, 2 * tau, tau)  # second warm-up (allocator, caches)
@@ -90,6 +99,8 @@ def main(argv=None) -> int:
     print(f"{smi or torch.cuda.get_device_name(0)}; {args.path} ({params.time_integration_scheme}, "
           f"{dim}D, q={params.irk_stages}, refinement {params.n_refinements}); arm: {arm}; "
           f"step counts {log}")
+    if mesh is not None:
+        print(f"slot mesh {scheme.mesh.shape}, every slot on {device}")
     print(f"step wall {wall * 1e3:.3f} ms; device busy {busy * 1e3:.3f} ms; "
           f"idle share {1 - busy / wall:.3f}; device ops {n_launch}")
     for e in sorted(kernels, key=dev_us, reverse=True)[: args.top]:
