@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives seven paths of the port through ``run_config`` on ``cuda``, each
+Drives ten paths of the port through ``run_config`` on ``cuda``, each
 MatrixFree + GMG, InnerTolerance 0, OuterTolerance 1e-4, Q1, f32, dt 0.1,
 3 timesteps:
 
@@ -24,7 +24,19 @@ MatrixFree + GMG, InnerTolerance 0, OuterTolerance 1e-4, Q1, f32, dt 0.1,
   of 64 and 63 planes — through the halo kernels K9a, K9b, K9c;
 * P7: ``spirk`` with UseSharedMemory (json/spirk_sm.json's widths: 3D,
   q=2, refinement 8; the all-gather mixer) on a (2, 2) mesh — K9d on the
-  255 level, K9a/K9b/K9c, the 12-column GMRES basis.
+  255 level, K9a/K9b/K9c, the 12-column GMRES basis;
+* P8: ``complex_spirk_batched`` (json/complex_spirk_batched.json's widths:
+  3D, q=5, refinement 7) on a (3, 2) mesh, a pair per stage row — six
+  slots, z slabs of 64 and 63 planes: K9b + the row-local 2x2 pair block,
+  one 6-lane mesh V-cycle (K9a/K9c) per application, the T^-1 / T maps
+  (K2) unsharded;
+* P9: ``complex_spirk`` with PRESB (json/complex_spirk.json's widths) on a
+  (3, 2) mesh — two 3-lane mesh V-cycles and one K9a (``M x0``) per
+  application;
+* P10: P4 with ``cheb_pair=True`` — K8 takes the 255 level's Chebyshev
+  steps two at a time (half P4's K3dg launches, no K3dg), kernel arm only:
+  its plain arm would be P4's (the plain pair step is two plain K3dg
+  steps), so it is held against both of P4's arms.
 
 Phases; any failure exits non-zero:
 
@@ -34,24 +46,31 @@ Phases; any failure exits non-zero:
    per source, all started together;
 3. kernels: every kernel against its plain torch version on the card at
    every shape the paths give it and at degrees 2-4 on small levels, to
-   1e-5 max|ref|, with CUDA-event times of kernel, plain version and,
-   where one PyTorch call computes the same function, that call
-   (``library_ms``; held against the plain version, used nowhere in the
-   port) at the paths' finest levels; the halo kernels K9a-K9d through
-   the space-sharded layer (2 and 4 space slots, degrees 1-4): gathered,
-   against the same layer over their plain versions, and ``torch.equal``
-   to the whole-field kernel;
+   1e-5 max|ref| (K8, two chained f32 steps: 2e-5), with CUDA-event times
+   of kernel, plain version and, where one PyTorch call computes the same
+   function, that call (``library_ms``; held against the plain version,
+   used nowhere in the port) at the paths' finest levels; the halo kernels
+   K9a-K9d through the space-sharded layer (2 and 4 space slots, degrees
+   1-4): gathered, against the same layer over their plain versions, and
+   ``torch.equal`` to the whole-field kernel; K8 also against two chained
+   K3dg launches (and timed beside them), and a mesh V-cycle at P7's
+   levels asked for pair steps launches no K8;
 4. per path, the kernel arm: the launch counts (all set to 0 just before
    the run, read just after) must equal what the solve structure implies
    and include every kernel of the path; L2 error < 1e-2; on a mesh the
    bytes passed between slots, by kind, must equal the structure's too,
-   with no message above p (grid transfers: h) planes;
+   with no message above p (grid transfers: h) planes and, for the pair
+   schemes, no stage mix at all; K8 runs on P10 only;
 5. per path, the plain arm: the same run on the plain torch operators;
    per-step outer and per-stage (per-pair) inner counts within 1 of the
-   kernel arm, solutions close;
-6. the mutual oracles: P5's and P6's L2 error within 1% of P2's (same q,
-   refinement and tolerances, three different schemes), and P6's outer
-   count per step within 1 of an unsharded ``irk_batched`` run's.
+   kernel arm, solutions close (P10: against P4's two arms);
+6. the mutual oracles: P5's, P6's and P9's L2 error within 1% of P2's
+   (same q, refinement and tolerances, four different schemes), P8's
+   within 3% (the tolerance's solve error, ORACLES), P10's within 1% of P4's; P6's outer count
+   per step within 1 of an unsharded ``irk_batched`` run's, P8's per-pair
+   outer counts within 1 of an unsharded ``complex_irk_batched`` run's and
+   its L2 within 1% of that run's, P9's per-pair outer and inner counts
+   within 1 of P5's.
 
 Prints the kernel summary as one JSON line, then as its last line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -101,10 +120,26 @@ PATHS = {
                "IRKStages": 5}, 4),
     "P7": (3, {**_COMMON, "NRefinements": 8, "TimeIntegrationScheme": "spirk",
                "IRKStages": 2, "UseSharedMemory": True, "DoRowMajor": True, "Padding": 0}, 5),
+    "P8": (3, {**_COMMON, "NRefinements": 7, "TimeIntegrationScheme": "complex_spirk_batched",
+               "IRKStages": 5}, 4),
+    "P9": (3, {**_COMMON, "NRefinements": 7, "TimeIntegrationScheme": "complex_spirk",
+               "IRKStages": 5}, 4),
+    "P10": (3, {**_COMMON, "NRefinements": 8, "TimeIntegrationScheme": "complex_irk_batched",
+                "IRKStages": 5}, 5),
 }
-SLOTS = {"P6": 10, "P7": 4}  # slots of the (stage, space) mesh, all on the one card
-# L2 of the first within this share of the second's
-ORACLES = (("P5", "P2", 0.01), ("P6", "P2", 0.01))
+# slots of the (stage, space) mesh, all on the one card
+SLOTS = {"P6": 10, "P7": 4, "P8": 6, "P9": 6}
+# paths run with cheb_pair=True (K8), kernel arm only: the path whose two
+# arms each is held against
+PAIR_STEPPED = {"P10": "P4"}
+# L2 of the first within this share of the second's.  P8 within 3%: at
+# OuterTolerance 1e-4 the block-preconditioned pair GMRES of the batched
+# complex scheme stops where its solve error moves L2 by 2.27% from irk's,
+# in f64 as in f32 and at the same counts; at 1e-6 both precisions come
+# within 0.004% (scripts/torch_l2_tolerance.py, PERF.md).  P8 is held to 1%
+# of the unsharded complex_irk_batched run at its widths too (run_paths).
+ORACLES = (("P5", "P2", 0.01), ("P6", "P2", 0.01), ("P8", "P2", 0.03), ("P9", "P2", 0.01),
+           ("P10", "P4", 0.01))
 _ST = "dealii_spirk_tpu/ops/pallas/stencil.py"
 _SH = "dealii_spirk_tpu/ops/pallas/sharded.py"
 _CS = "dealii_spirk_tpu_torch/csrc/"
@@ -114,6 +149,7 @@ KERNELS = {
     "stage_mix": (_CS + "stage_mix.cu", f"{_ST}:2749"),
     "cheb_iter": (_CS + "cheb_iter.cu", f"{_ST}:3196"),
     "cheb_iter_dg": (_CS + "cheb_iter.cu", f"{_ST}:2503"),
+    "cheb_pair_dg": (_CS + "cheb_pair.cu", f"{_ST}:2215"),
     "stencil_apply": (_CS + "stencil_apply.cu", f"{_ST}:682"),
     "stencil_apply_2d": (_CS + "stencil_apply.cu", f"{_ST}:832"),
     "mass_stiffness_apply": (_CS + "mass_stiffness_apply.cu", f"{_ST}:762"),
@@ -131,11 +167,13 @@ HALO = {  # halo kernel: its whole-field kernel
 }
 # field passes each kernel must make (each input read once, each output
 # written once): K1 u -> out; K3 d, r, x, D^-1 -> r', d', x'; K3dg without
-# D^-1; K4 u -> out; K5 u -> M u, K u.  K2 moves q_in + q_out fields.
+# D^-1; K8 d, r, x -> r'', d'', x'' for two steps; K4 u -> out; K5 u -> M u,
+# K u.  K2 moves q_in + q_out fields.
 PASSES = {
     "ms_mix_apply": 2,
     "cheb_iter": 7,
     "cheb_iter_dg": 6,
+    "cheb_pair_dg": 6,
     "stencil_apply": 2,
     "stencil_apply_2d": 2,
     "mass_stiffness_apply": 3,
@@ -198,6 +236,22 @@ HALO_CASES = [
     (4, 4, 3, (2, 4), False),
     (4, 3, 4, (2, 4), False),
 ]
+# K8 against its plain version and two chained K3dg launches: (q, refinement,
+# degree, timed); m = 255 and 127 are no multiple of the 8 x 8 x 32 tile, 15
+# is less than one tile along x, p = 2-4 take the smaller tiles of PAIR_TILE
+PAIR_CASES = [
+    (6, 8, 1, True),  # P10's 255 level: P4's shape
+    (3, 7, 1, False),
+    (2, 4, 1, False),
+    (4, 5, 2, False),
+    (4, 4, 3, False),
+    (4, 4, 4, False),
+]
+# K8's output tile per degree (csrc/cheb_pair.cu, PairTile): z, y, x
+PAIR_TILE = {1: (8, 8, 32), 2: (8, 8, 32), 3: (4, 8, 32), 4: (4, 8, 16)}
+# two chained f32 steps: the second step's apply carries the first step's
+# round-off, so K8 is held to twice the one-step tolerance
+PAIR_TOL = 2 * REL_TOL
 # K2 at the complex maps' shapes: (dim, q_in, q_out, refinement, timed) —
 # T^-1 (2 n2 x q), T (q x 2 n2), the vmult's 2x2 pair blocks (2 n2 x 2 n2)
 MIX_CASES = [
@@ -234,7 +288,8 @@ def bound(name: str, q_in: int, q_out: int, points: int, p: int, dim: int,
     stage, nb = 2p + 1 taps per axis: the shifted 3D apply 14 nb (z pass
     two sums, y pass C and D, x pass one sum of two products), K5 16 nb,
     K1 K5's plus 2 q for the mix, the Chebyshev update 8 more, K3dg's
-    diagonal 10 more; 2D apply and K5-2D 10 nb; K2 2 q_in.  A halo
+    diagonal 10 more, K8 two K3dg steps; 2D apply and K5-2D 10 nb; K2
+    2 q_in.  A halo
     kernel is its whole-field kernel on the slab's ``points``, plus the
     ``halo_points`` of the 2p neighbour planes that its operand carries."""
     nb = 2 * p + 1
@@ -248,6 +303,7 @@ def bound(name: str, q_in: int, q_out: int, points: int, p: int, dim: int,
             "ms_mix_apply": 16 * nb + 2 * q_in,
             "cheb_iter": 14 * nb + 8,
             "cheb_iter_dg": 14 * nb + 18,
+            "cheb_pair_dg": 2 * (14 * nb + 18),
             "stencil_apply": 14 * nb,
             "mass_stiffness_apply": 16 * nb,
             "stencil_apply_2d": 10 * nb,
@@ -379,6 +435,8 @@ def check_kernels(device) -> dict:
 
     report = {name: {"max_abs_err": 0.0, "times": []} for name in KERNELS}
     check_halo_kernels(device, report)
+    check_pair_kernel(device, report)
+    check_mesh_ignores_pair(device)
     for dim, q, ref, p, names, timed in KERNEL_CASES:
         ops = level_ops(make_level(ref, p), torch.float32, device)
         cases, libs = kernel_cases(ops, q, dim, device, seed=ref * 10 + p + q)
@@ -484,6 +542,104 @@ def check_halo_kernels(device, report: dict) -> None:
     say("halo kernels: every gathered result torch.equal to its whole-field kernel")
 
 
+def check_pair_kernel(device, report: dict) -> None:
+    """Phase 3 for K8 (PAIR_CASES): against its plain version (two chained
+    plain K3dg steps) and against two chained K3dg launches, both to
+    PAIR_TOL; at P10's shape the times of K8, of the plain version and of
+    the two K3dg launches and K8's bound; printed beside them, not reported,
+    an estimate of the operations K8 really does (stage 1 on the tile grown
+    by p on every side) at the f32 peak."""
+    from dealii_spirk_tpu_torch.fem.grid import make_level
+    from dealii_spirk_tpu_torch.ops.cuda import stencil as st
+    from dealii_spirk_tpu_torch.ops.mass_laplace import level_ops
+
+    for q, ref, p, timed in PAIR_CASES:
+        ops = level_ops(make_level(ref, p), torch.float32, device)
+        m = ops.m
+        rng = np.random.default_rng(1000 + 10 * ref + p)
+
+        def field():
+            return torch.as_tensor(rng.uniform(-1, 1, (q, m, m, m)), dtype=torch.float32,
+                                   device=device)
+
+        def vec(lo, hi):
+            return torch.as_tensor(rng.uniform(lo, hi, (q,)), dtype=torch.float32,
+                                   device=device)
+
+        d, r, x = field(), field(), field()
+        a, b = vec(0.5, 2.0), 0.1
+        c1a, c2a, c1b, c2b = vec(0.2, 0.9), vec(0.1, 0.5), vec(0.2, 0.9), vec(0.1, 0.5)
+
+        def kern():
+            return st.cheb_pair_dg(ops, a, b, c1a, c2a, c1b, c2b, d, r, x)
+
+        def plain():
+            return st.cheb_pair_dg_ref(ops, a, b, c1a, c2a, c1b, c2b, d, r, x)
+
+        def two_k3dg():
+            r1, d1, x1 = st.cheb_iter_dg(ops, a, b, c1a, c2a, d, r, x)
+            return st.cheb_iter_dg(ops, a, b, c1b, c2b, d1, r1, x1)
+
+        at = f"3D p={p} m={m} q={q}"
+        got = kern()
+        err = _hold(f"kernel {'cheb_pair_dg':24s} {at}", got, plain(), PAIR_TOL)
+        _hold("  against two K3dg launches", got, two_k3dg(), PAIR_TOL)
+        report["cheb_pair_dg"]["max_abs_err"] = max(report["cheb_pair_dg"]["max_abs_err"], err)
+        del got
+        if timed:
+            ms, plain_ms, two_ms = cuda_ms(kern), cuda_ms(plain), cuda_ms(two_k3dg)
+            bnd = bound("cheb_pair_dg", q, q, m**3, p, 3)
+            # stage 1 runs on the grown tile: its share of the operations
+            tz, ty, tx = PAIR_TILE[p]
+            grown = (tz + 2 * p) * (ty + 2 * p) * (tx + 2 * p) / (tz * ty * tx)
+            own_flops = (1 + grown) * q * m**3 * (14 * (2 * p + 1) + 18)
+            own_ms = own_flops / F32_FLOPS_PER_S * 1e3
+            report["cheb_pair_dg"]["times"].append({
+                "at": at, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                "bound_ms": bnd[0], "bound_by": bnd[1], "two_k3dg_ms": two_ms,
+            })
+            say(f"  time at {at}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms, two K3dg "
+                f"launches {two_ms:.4f} ms, library none, bound {bnd[0]:.4f} ms ({bnd[1]}); "
+                f"estimate, not measured: with stage 1 on the {grown:.3f}x grown tile its "
+                f"f32 operations take {own_ms:.4f} ms at peak")
+        del d, r, x
+        torch.cuda.empty_cache()
+
+
+def check_mesh_ignores_pair(device) -> None:
+    """A mesh V-cycle at P7's levels (q=2, refinement 8, a (2, 2) mesh: K9d on
+    the 255 level) asked for pair steps launches no K8 and gives the
+    single-step result bit for bit: the JAX package's pair kernel has no
+    sharded form, and the mesh keeps single steps."""
+    from dealii_spirk_tpu_torch.fem.grid import make_space
+    from dealii_spirk_tpu_torch.ops.cuda import stencil as st
+    from dealii_spirk_tpu_torch.parallel.mesh import make_mesh
+    from dealii_spirk_tpu_torch.parallel.sharding import gather, scatter
+    from dealii_spirk_tpu_torch.solvers import gmg
+
+    space = make_space(3, 1, 8)
+    data = gmg.build_gmg_data(space, dtype=torch.float32, device=device)
+    a = torch.tensor([1.5, 4.0], dtype=torch.float32, device=device)
+    prec = gmg.gmg_reinit(data, a, 0.1, 3)
+    mesh = make_mesh(2, devices=[device] * 4)
+    mp = gmg.scatter_prec(data, prec, a, 3, mesh)
+    rng = np.random.default_rng(3)
+    r = scatter(torch.as_tensor(rng.uniform(-1, 1, (2,) + space.shape), dtype=torch.float32,
+                                device=device), mesh, kind=None)
+    st.reset_launches()
+    got = gmg.vcycle(data, mp, a, 0.1, r, 3, kernels=True, mesh=mesh, cheb_pair=True)
+    launches = dict(st.LAUNCHES)
+    want = gmg.vcycle(data, mp, a, 0.1, r, 3, kernels=True, mesh=mesh)
+    same = torch.equal(gather(got), gather(want))
+    say(f"mesh V-cycle with cheb_pair=True at q=2, m=255, (2, 2) mesh: K8 "
+        f"{launches['cheb_pair_dg']}, K9d {launches['cheb_iter_dg_halo']}, "
+        f"equal to the single-step V-cycle: {same}")
+    if launches["cheb_pair_dg"] or not launches["cheb_iter_dg_halo"] or not same:
+        raise AssertionError("the mesh V-cycle took pair steps")
+    del data, prec, mp, r, got, want
+    torch.cuda.empty_cache()
+
+
 def _time_slab(report, sops, ops, u, d, r, x, invd, a, b, c1, c2) -> None:
     """Times of one slot's launch of each halo kernel at the first slab of a
     (q, 2) mesh (one stage, planes 0 .. nz_c / 2 with its p-plane halo)."""
@@ -521,30 +677,81 @@ def _time_slab(report, sops, ops, u, d, r, x, invd, a, b, c1, c2) -> None:
 
 def run_path(device, name: str, kernels: bool, **over):
     """``run_config`` of a path (``over``: configuration keys to replace),
-    a stage-parallel one on its SLOTS slots of the one card."""
+    a stage-parallel one on its SLOTS slots of the one card, a
+    PAIR_STEPPED one with ``cheb_pair=True``."""
     from dealii_spirk_tpu_torch.config import Parameters
     from dealii_spirk_tpu_torch.runner import run_config
 
     dim, cfg, _L = PATHS[name]
     params = Parameters.from_dict({**cfg, **over}, dim=dim)
     return run_config(params, device=device, verbose=False, kernels=kernels,
-                      slots=SLOTS.get(name))
+                      slots=SLOTS.get(name), cheb_pair=name in PAIR_STEPPED)
 
 
 def _smoother_launches(scheme, n_vcycle: int, want: dict) -> None:
     """Per V-cycle, on each smoothed level: 3D two smooths of 4 fused
-    Chebyshev steps (K3, or K3dg on ``cheb_diag_level`` levels) plus the
+    Chebyshev steps (K3, or K3dg on ``cheb_diag_level`` levels, or with
+    ``cheb_pair`` 2 K8 pair steps on ``cheb_pair_level`` levels) plus the
     post-smooth entry and restriction residuals (K4); 2D the 8 Chebyshev
     steps, each one K4-2D apply, plus those two residuals."""
-    from dealii_spirk_tpu_torch.solvers.gmg import cheb_diag_level
+    from dealii_spirk_tpu_torch.solvers.gmg import cheb_diag_level, cheb_pair_level
 
     for ops in scheme.gmg.level_ops[1:]:
         if scheme.dim == 3:
-            key = "cheb_iter_dg" if cheb_diag_level(ops.m, 3) else "cheb_iter"
-            want[key] += 8 * n_vcycle
+            if scheme.cheb_pair and cheb_pair_level(ops.m, 3, ops.p):
+                want["cheb_pair_dg"] += 4 * n_vcycle
+            else:
+                key = "cheb_iter_dg" if cheb_diag_level(ops.m, 3) else "cheb_iter"
+                want[key] += 8 * n_vcycle
             want["stencil_apply"] += 2 * n_vcycle
         else:
             want["stencil_apply_2d"] += 10 * n_vcycle
+
+
+def _pair_counts(scheme) -> tuple[int, int]:
+    """(vmults, preconditioner applications) of a complex scheme's run: per
+    step one application at the start, then one vmult and one application
+    per iteration of the slowest live pair ("sweeps") and per restart."""
+    n_vmult = n_app = 0
+    for s in scheme.step_log:
+        vmults = s["n_sweeps"] + s["n_restarts"]
+        if s["n_restarts"] == 0 and (
+            s["n_sweeps"] != max(s["n_outer_pair"])
+            or s["n_inner_pair"] != [[1 + n, 1 + n] for n in s["n_outer_pair"]]
+        ):
+            raise AssertionError(f"pair counts off the GMRES structure: {s}")
+        n_vmult += vmults
+        n_app += vmults + 1
+    return n_vmult, n_app
+
+
+def _mesh_counts(scheme) -> tuple[int, int]:
+    """(vmults, preconditioner applications) of a ``spirk`` run; every
+    stage counts one V-cycle per application."""
+    n_vmult = n_app = 0
+    for s in scheme.step_log:
+        apps = s["n_outer"] + 1 + s["n_restarts"]
+        if s["n_inner_stage"] != [apps] * scheme.q:
+            raise AssertionError(f"V-cycle count off the GMRES structure: {s}")
+        n_vmult += s["n_outer"] + s["n_restarts"]
+        n_app += apps
+    return n_vmult, n_app
+
+
+def _solve_structure(scheme) -> dict:
+    """What a run's solver counts imply: vmults, mesh or whole V-cycles, the
+    lanes of the vmult and of a V-cycle, and the fine-level K4 / K9a
+    launches outside the V-cycles (PRESB's ``M x0``, over n2 lanes)."""
+    if hasattr(scheme, "n_pairs"):
+        n2 = scheme.n_pairs
+        n_vmult, n_app = _pair_counts(scheme)
+        presb = not scheme.batched
+        return {"vmult": n_vmult, "vcycle": 2 * n_app if presb else n_app,
+                "vmult_lanes": 2 * n2, "vcycle_lanes": n2 if presb else 2 * n2,
+                "mx0": n_app if presb else 0, "mx0_lanes": n2, "app": n_app}
+    n_vmult, n_app = _mesh_counts(scheme)
+    return {"vmult": n_vmult, "vcycle": n_app, "vmult_lanes": scheme.q,
+            "vcycle_lanes": scheme.q, "mx0": 0, "mx0_lanes": 0, "app": n_app}
 
 
 def expected_launches(out) -> dict:
@@ -559,30 +766,24 @@ def expected_launches(out) -> dict:
     * ``complex_irk(_batched)``: the vmult is K5 + a K2 mix of the pair
       blocks; the T^-1 and T maps are one K2 each per step; an
       application is one 2 n2-lane V-cycle (batched) or PRESB's two n2-lane
-      V-cycles and one K4 (``M x0``)."""
+      V-cycles and one K4 (``M x0``);
+    * on a mesh (``spirk``, ``complex_spirk(_batched)``): ``_mesh_launches``,
+      and for the pair schemes the two unsharded K2 maps per step."""
     from dealii_spirk_tpu_torch.ops.cuda import stencil as st
 
     scheme = out["scheme"]
     want = dict.fromkeys(st.LAUNCHES, 0)
     n_vmult = n_app = n_vcycle = 0
-    if getattr(scheme, "mesh", None) is not None:
+    if scheme.mesh is not None:
+        if hasattr(scheme, "n_pairs"):
+            want["stage_mix"] = 2 * len(scheme.step_log)
         return _mesh_launches(scheme, want)
     if hasattr(scheme, "n_pairs"):
-        for s in scheme.step_log:
-            vmults = s["n_sweeps"] + s["n_restarts"]
-            if s["n_restarts"] == 0 and (
-                s["n_sweeps"] != max(s["n_outer_pair"])
-                or s["n_inner_pair"] != [[1 + n, 1 + n] for n in s["n_outer_pair"]]
-            ):
-                raise AssertionError(f"pair counts off the GMRES structure: {s}")
-            n_vmult += vmults
-            n_app += vmults + 1
-        n_vcycle = n_app if scheme.batched else 2 * n_app
-        want["mass_stiffness_apply"] = n_vmult
-        want["stage_mix"] = n_vmult + 2 * len(scheme.step_log)
-        if not scheme.batched:
-            want["stencil_apply"] = n_app
-        _smoother_launches(scheme, n_vcycle, want)
+        sv = _solve_structure(scheme)
+        want["mass_stiffness_apply"] = sv["vmult"]
+        want["stage_mix"] = sv["vmult"] + 2 * len(scheme.step_log)
+        want["stencil_apply"] = sv["mx0"]
+        _smoother_launches(scheme, sv["vcycle"], want)
         return want
     per_app = scheme.q if scheme.sequential else 1
     for s in scheme.step_log:
@@ -602,75 +803,74 @@ def expected_launches(out) -> dict:
     return want
 
 
-def _mesh_counts(scheme) -> tuple[int, int]:
-    """(vmults, preconditioner applications) of a ``spirk`` run; every
-    stage counts one V-cycle per application."""
-    n_vmult = n_app = 0
-    for s in scheme.step_log:
-        apps = s["n_outer"] + 1 + s["n_restarts"]
-        if s["n_inner_stage"] != [apps] * scheme.q:
-            raise AssertionError(f"V-cycle count off the GMRES structure: {s}")
-        n_vmult += s["n_outer"] + s["n_restarts"]
-        n_app += apps
-    return n_vmult, n_app
-
-
 def _mesh_launches(scheme, want: dict) -> dict:
-    """``spirk`` on a 3D mesh whose smoothed levels are all sharded: every
+    """A scheme on a 3D mesh whose smoothed levels are all sharded: every
     operation is one halo-kernel launch per slot — per vmult one K9b, per
-    V-cycle and level 8 Chebyshev steps (K9c, or K9d on ``cheb_diag_level``
-    levels) and 2 K9a; the mixes are torch (K1 and K2 stay at 0) and the
+    ``M x0`` one K9a, per V-cycle and level 8 Chebyshev steps (K9c, or K9d
+    on ``cheb_diag_level`` levels; never K8) and 2 K9a; the mixes are torch
+    (K1 stays at 0, K2 runs only the pair schemes' unsharded maps) and the
     coarse level is a dense solve."""
     from dealii_spirk_tpu_torch.solvers.gmg import cheb_diag_level
 
     n_slots = scheme.mesh.slot_ids.size
-    n_vmult, n_app = _mesh_counts(scheme)
+    sv = _solve_structure(scheme)
     prec = scheme.prec_state(scheme.params.time_step_size)
     if [lv is not None for lv in prec.levels] != [False] + [True] * (len(prec.levels) - 1):
         raise AssertionError("every smoothed level of this path should be sharded")
-    want["mass_stiffness_apply_halo"] = n_vmult * n_slots
+    want["mass_stiffness_apply_halo"] = sv["vmult"] * n_slots
+    want["stencil_apply_halo"] = sv["mx0"] * n_slots
     for level in prec.levels[1:]:
         key = "cheb_iter_dg_halo" if cheb_diag_level(level.m, 3) else "cheb_iter_halo"
-        want[key] += 8 * n_app * n_slots
-        want["stencil_apply_halo"] += 2 * n_app * n_slots
+        want[key] += 8 * sv["vcycle"] * n_slots
+        want["stencil_apply_halo"] += 2 * sv["vcycle"] * n_slots
     return want
 
 
 def expected_exchange(scheme) -> tuple[dict, int]:
     """(bytes passed between slots by kind, the most planes in one halo
-    message) that a ``spirk`` run's structure implies, f32.  With S stage
-    rows of q / S stages and C space slots, a z exchange of h planes on a
-    level of m points per axis moves 2 (C - 1) messages of h m^2 points per
-    stage: one per sharded kernel launch (h = p), one per z transfer (its
-    plan's h, on the level it reads).  A ring mix moves every stage block
-    q - 1 times, an all-gather mix S - 1 times: once per step for the
-    right-hand side, once per vmult, twice per application.  The coarse
-    level's planes outside each row's first slot travel there and back per
-    V-cycle; the right-hand side and the solution once per step."""
+    message) that a mesh run's structure implies.  With S stage rows
+    and C space slots, a z exchange of h planes on a level of m points per
+    axis moves 2 (C - 1) messages of h m^2 points per lane: one per sharded
+    kernel launch (h = p), one per z transfer (its plan's h, on the level
+    it reads).  ``spirk``: a ring mix moves every stage block q - 1 times,
+    an all-gather mix S - 1 times: once per step for the right-hand side,
+    once per vmult, twice per application.  The pair schemes mix nothing
+    on the mesh: the 2x2 pair block is row-local and the T^-1 / T maps run
+    unsharded.  The coarse level's planes outside each row's first slot
+    travel there and back per V-cycle; the right-hand side and the
+    solution (q stages, or the 2 n2 mapped lanes) once per step."""
     from dealii_spirk_tpu_torch.parallel.sharding import z_partition
 
-    mesh, q = scheme.mesh, scheme.q
+    mesh = scheme.mesh
     C, S = mesh.n_space, mesh.n_stage
-    n_vmult, n_app = _mesh_counts(scheme)
+    sv = _solve_structure(scheme)
     n_steps = len(scheme.step_log)
     prec = scheme.prec_state(scheme.params.time_step_size)
     ms = [lv.m if lv is not None else None for lv in prec.levels]
     m0, mf = scheme.gmg.level_ops[0].m, scheme.fine.m
     p = scheme.fine.p
-    pair = 4 * q * 2 * (C - 1)  # bytes per point of a plane, both directions, every stage
-    halo, planes = n_vmult * p * mf**2, p
+    esize = torch.finfo(scheme.dtype).bits // 8
+    per_lane = esize * 2 * (C - 1)  # bytes per point of a plane, both directions, one lane
+    fine = sv["vmult"] * sv["vmult_lanes"] + sv["mx0"] * sv["mx0_lanes"]
+    halo, planes = fine * p * mf**2, p
     for l in range(1, len(ms)):
         m_c = ms[l - 1] or m0
         hr, hp = prec.restricts[l - 1].h, prec.prolongs[l - 1].h
-        halo += n_app * (10 * p * ms[l] ** 2 + hr * ms[l] ** 2 + hp * m_c**2)
+        halo += sv["vcycle"] * sv["vcycle_lanes"] * (
+            10 * p * ms[l] ** 2 + hr * ms[l] ** 2 + hp * m_c**2)
         planes = max(planes, hr, hp)
-    block = 4 * q * mf**3
-    hops = q - 1 if scheme.ring else S - 1
+    lanes = sv["vmult_lanes"]  # of the right-hand side and the solution
+    block = esize * lanes * mf**3
+    if hasattr(scheme, "n_pairs"):
+        mix = 0
+    else:
+        hops = scheme.q - 1 if scheme.ring else S - 1
+        mix = hops * block * (n_steps + sv["vmult"] + 2 * sv["app"])
     first = z_partition(m0, C)[0][1]
     return {
-        "halo": pair * halo,
-        "mix": hops * block * (n_steps + n_vmult + 2 * n_app),
-        "coarse_gather": n_app * 2 * 4 * q * (m0 - first) * m0**2,
+        "halo": per_lane * halo,
+        "mix": mix,
+        "coarse_gather": sv["vcycle"] * 2 * esize * sv["vcycle_lanes"] * (m0 - first) * m0**2,
         "state": n_steps * 2 * block,
     }, planes
 
@@ -736,22 +936,47 @@ def _counts(s: dict, pairs: bool) -> list[int]:
     return [s["n_outer"]] + list(s["n_inner_stage"])
 
 
-def plain_arm(device, name: str, kern: dict) -> dict:
-    """Phase 5: the plain torch arm; per-step outer and per-stage
-    (per-pair) inner counts within 1, solutions close."""
-    out = _record(run_path(device, name, kernels=False))
-    say(f"{name} (plain torch):")
-    for i, (sk, sp) in enumerate(zip(kern["step_log"], out["step_log"]), 1):
-        ck, cp = _counts(sk, kern["pairs"]), _counts(sp, out["pairs"])
-        say(f"  step {i}: counts {ck} (kernels) vs {cp} (plain)")
-        if len(ck) != len(cp) or max(abs(a - b) for a, b in zip(ck, cp)) > 1:
-            raise AssertionError(f"{name}: kernel and plain arms' counts differ by more than 1")
-    du = float((kern["u"] - out["u"]).abs().max() / out["u"].abs().max())
-    say(f"  L2 error {out['error_L2']:.6e} (plain) vs {kern['error_L2']:.6e} (kernels); "
-        f"max|u_k - u_p| / max|u_p| = {du:.3e} (tol 1e-3)")
+def _hold_arms(a: dict, b: dict) -> None:
+    """Per-step outer and per-stage (per-pair) inner counts of two runs of
+    one configuration within 1, their solutions close."""
+    for i, (sa, sb) in enumerate(zip(a["step_log"], b["step_log"]), 1):
+        ca, cb = _counts(sa, a["pairs"]), _counts(sb, b["pairs"])
+        say(f"  step {i}: counts {ca} vs {cb}")
+        if len(ca) != len(cb) or max(abs(x - y) for x, y in zip(ca, cb)) > 1:
+            raise AssertionError("the two runs' counts differ by more than 1")
+    du = float((a["u"] - b["u"]).abs().max() / b["u"].abs().max())
+    say(f"  L2 error {a['error_L2']:.6e} vs {b['error_L2']:.6e}; "
+        f"max|u_a - u_b| / max|u_b| = {du:.3e} (tol 1e-3)")
     if du > 1e-3:
-        raise AssertionError(f"{name}: kernel and plain arms' solutions differ")
+        raise AssertionError("the two runs' solutions differ")
+
+
+def plain_arm(device, name: str, kern: dict) -> dict:
+    """Phase 5: the plain torch arm against the kernel arm."""
+    out = _record(run_path(device, name, kernels=False))
+    say(f"{name}: kernel arm vs plain torch arm")
+    _hold_arms(kern, out)
     return out
+
+
+def _vcycles(rec: dict) -> int:
+    """V-cycles of a ``complex_irk_batched`` run: one per application."""
+    return sum(s["n_sweeps"] + s["n_restarts"] + 1 for s in rec["step_log"])
+
+
+def check_pair_stepped(launches: dict, records: dict) -> None:
+    """K8 runs on the PAIR_STEPPED paths only, there in place of every
+    K3dg launch at half their number per V-cycle."""
+    for name in PATHS:
+        if name not in PAIR_STEPPED and launches[name]["cheb_pair_dg"]:
+            raise AssertionError(f"{name} launched K8")
+    for name, ref in PAIR_STEPPED.items():
+        k8, dg = launches[name]["cheb_pair_dg"], launches[ref]["cheb_iter_dg"]
+        nv, nv_ref = _vcycles(records[name][0]), _vcycles(records[ref][0])
+        say(f"{name}: K8 {k8} launches in {nv} V-cycles, K3dg {launches[name]['cheb_iter_dg']};"
+            f" {ref}: K3dg {dg} in {nv_ref} V-cycles")
+        if launches[name]["cheb_iter_dg"] or not k8 or 2 * k8 * nv_ref != dg * nv:
+            raise AssertionError(f"{name}: K8 is not half of {ref}'s K3dg per V-cycle")
 
 
 def main() -> int:
@@ -778,39 +1003,93 @@ def main() -> int:
             say(f"  ptxas {entry}: {line.split(':', 1)[-1].strip()}")
 
     report = check_kernels(device)
-    launches, l2, outer = {}, {}, {}
+    launches = run_paths(device, smi)
+    say(json.dumps(kernel_summary(report, launches)))
+    say(json.dumps({
+        "ok": True,
+        "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        },
+    }))
+    return 0
+
+
+def run_paths(device, smi: str) -> dict:
+    """Phases 4-6 over PATHS; returns each path's launch counts."""
+    launches, l2, outer, times = {}, {}, {}, {}
+    # the runs later phases hold others against: (kernel arm, plain arm)
+    keep = set(PAIR_STEPPED.values()) | set(PAIR_STEPPED) | {"P5", "P8", "P9"}
+    records = {}
     for name in PATHS:
         t0 = time.perf_counter()
         torch.cuda.reset_peak_memory_stats()
         kern, launches[name] = kernel_arm(device, name)
         gc.collect()
         torch.cuda.empty_cache()
-        plain = plain_arm(device, name, kern)
+        if name in PAIR_STEPPED:
+            ref_k, ref_p = records[PAIR_STEPPED[name]]
+            for arm, rec in (("kernel", ref_k), ("plain torch", ref_p)):
+                say(f"{name} (kernels, cheb_pair) vs {PAIR_STEPPED[name]}'s {arm} arm")
+                _hold_arms(kern, rec)
+            plain = None
+        else:
+            plain = plain_arm(device, name, kern)
         l2[name] = kern["error_L2"]
         outer[name] = [s.get("n_outer") for s in kern["step_log"]]
-        say(f"{name} per-step ms (steps >= 2) on {smi}: kernels "
-            f"{[round(t * 1e3, 3) for t in kern['step_seconds']]}, plain "
-            f"{[round(t * 1e3, 3) for t in plain['step_seconds']]}; "
-            f"both arms {time.perf_counter() - t0:.1f} s")
+        times[name] = [round(t * 1e3, 3) for t in kern["step_seconds"]]
+        say(f"{name} per-step ms (steps >= 2) on {smi}: kernels {times[name]}, plain "
+            + (f"{[round(t * 1e3, 3) for t in plain['step_seconds']]}" if plain is not None
+               else f"(that of {PAIR_STEPPED[name]})")
+            + f"; {time.perf_counter() - t0:.1f} s")
+        if name in keep:
+            records[name] = (kern, plain)
         del kern, plain
         gc.collect()
         torch.cuda.empty_cache()
+    check_pair_stepped(launches, records)
+    for name, ref in PAIR_STEPPED.items():
+        say(f"{ref} vs {name} (K3dg vs K8 on the 255 level) per-step ms, one run, on {smi}: "
+            f"{times[ref]} vs {times[name]}")
     for a, b, share in ORACLES:
         rel = abs(l2[a] - l2[b]) / l2[b]
         say(f"mutual oracle: {a} L2 {l2[a]:.6e} vs {b} L2 {l2[b]:.6e}: relative {rel:.3e} "
             f"(tol {share:g})")
         if rel > share:
             raise AssertionError(f"{a} and {b} disagree on the error")
-    # the partition leaves the iteration alone: P6 against the same solve
-    # unsharded (the JAX package asserts equal counts; on the card the
-    # per-slot partial sums reorder the reductions, hence within 1)
+    # the partition leaves the iteration alone: P6 and P8 against the same
+    # solve unsharded, P9 against P5 (the JAX package asserts equal counts;
+    # on the card the per-slot partial sums reorder the reductions, hence
+    # within 1)
     whole = run_path(device, "P6", kernels=True, TimeIntegrationScheme="irk_batched")
     n_whole = [s["n_outer"] for s in whole["scheme"].step_log]
     say(f"P6 outer counts per step {outer['P6']} vs unsharded irk_batched {n_whole}")
     if max(abs(x - y) for x, y in zip(outer["P6"], n_whole)) > 1:
         raise AssertionError("P6's outer counts moved by more than 1 under the partition")
     del whole
+    whole = run_path(device, "P8", kernels=True, TimeIntegrationScheme="complex_irk_batched")
+    n_whole = [s["n_outer_pair"] for s in whole["scheme"].step_log]
+    n_mesh = [s["n_outer_pair"] for s in records["P8"][0]["step_log"]]
+    rel = abs(l2["P8"] - whole["error_L2"]) / whole["error_L2"]
+    say(f"P8 per-pair outer counts per step {n_mesh} vs unsharded complex_irk_batched {n_whole};"
+        f" L2 {l2['P8']:.6e} vs {whole['error_L2']:.6e}: relative {rel:.3e} (tol 0.01)")
+    if len(n_mesh) != len(n_whole) or max(
+        abs(x - y) for a, b in zip(n_mesh, n_whole) for x, y in zip(a, b)
+    ) > 1:
+        raise AssertionError("P8's per-pair counts moved by more than 1 under the partition")
+    if rel > 0.01:
+        raise AssertionError("P8 and the unsharded complex_irk_batched disagree on the error")
+    del whole
+    say("P9 (complex_spirk on the mesh) vs P5 (complex_irk, unsharded):")
+    _hold_arms(records["P9"][0], records["P5"][0])
+    return launches
 
+
+def kernel_summary(report: dict, launches: dict) -> dict:
+    """The kernels line: per entry point its route, source, the TPU kernel
+    it replaces, launches on the paths, its largest error and its first
+    timed shape's numbers (every timed shape under ``times``)."""
     summary = {"kernels": []}
     for name, (src, replaces) in KERNELS.items():
         first = report[name]["times"][0]
@@ -825,16 +1104,7 @@ def main() -> int:
             **{k: first[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "times": report[name]["times"],
         })
-    say(json.dumps(summary))
-    say(json.dumps({
-        "ok": True,
-        "device": {
-            "platform": "gpu",
-            "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count(),
-        },
-    }))
-    return 0
+    return summary
 
 
 if __name__ == "__main__":

@@ -10,9 +10,16 @@ Same keys, defaults and validation as ``dealii_spirk_tpu/config.py``.
 from __future__ import annotations
 
 import json
+import os
 from dataclasses import dataclass
 
 import torch
+
+# The default of the schemes' ``cheb_pair`` option (K8, two Chebyshev steps
+# per launch on the V-cycle's ``cheb_pair_level`` levels), read once from
+# the switch the JAX package reads (``SPIRK_CHEB_PAIR=1``); off by default
+# there and here.
+CHEB_PAIR = os.environ.get("SPIRK_CHEB_PAIR", "0") == "1"
 
 SCHEMES = (
     "ost",

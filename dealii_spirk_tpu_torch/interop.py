@@ -16,7 +16,7 @@ import torch
 
 from .ops.mass_laplace import LevelOps
 from .parallel.mesh import SlotMesh
-from .parallel.sharding import ShardedBlock, scatter
+from .parallel.sharding import ShardedBlock, scatter, scatter_pairs
 from .solvers.gmg import GMGData, GMGPrec, MeshPrec, scatter_prec
 from .tables import IRKTables
 
@@ -76,9 +76,17 @@ def sharded_block_from_numpy(
     return scatter(_t(W, dtype, device), mesh, kind=None)
 
 
+def pair_block_from_numpy(
+    Z, mesh: SlotMesh, *, dtype=torch.float64, device="cpu"
+) -> ShardedBlock:
+    """A whole pair block (n2, 2, *spatial) of the complex schemes split
+    over the mesh, pairs over the stage rows (not counted as an exchange)."""
+    return scatter_pairs(_t(Z, dtype, device), mesh, kind=None)
+
+
 def sharded_block_to_numpy(block: ShardedBlock) -> np.ndarray:
-    """The whole stage block of a sharded one."""
-    parts = [np.concatenate([t.detach().cpu().numpy() for t in row], axis=1)
+    """The whole stage block (or pair block) of a sharded one."""
+    parts = [np.concatenate([t.detach().cpu().numpy() for t in row], axis=block.z_axis)
              for row in block.parts]
     return np.concatenate(parts, axis=0)
 
@@ -88,7 +96,7 @@ def mesh_prec_from_numpy(
 ) -> MeshPrec:
     """``gmg_prec_from_numpy`` followed by ``scatter_prec``: the multigrid
     state of the stage shifts ``a`` on the mesh, on ``gmg``'s dtype and
-    device."""
+    device (the complex schemes' 2 n2 lanes, two to a stage row, too)."""
     dtype, device = gmg.coarse_mass.dtype, gmg.coarse_mass.device
     prec = gmg_prec_from_numpy(
         inv_diags, thetas, deltas, coarse_inv, dtype=dtype, device=device

@@ -41,6 +41,8 @@ SIGNATURES = {
     "spirk_cheb_iter": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # d, r, x, mdiag, kdiag, r_out, d_out, x_out, mband, kband, w, q, m, p, stream
     "spirk_cheb_iter_dg": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # the pair step, K8: the same arguments, w (q, 6)
+    "spirk_cheb_pair_dg": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # the z-slab forms: ..., q, m, nzl, z_off, p, stream
     "spirk_stencil_apply_halo": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "spirk_mass_stiffness_apply_halo": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),

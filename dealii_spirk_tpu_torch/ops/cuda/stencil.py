@@ -32,6 +32,10 @@ block counts under ``<key>_2d``), with the Pallas kernels they replace
 * K3dg ``cheb_iter_dg`` — ``fused_cheb_iter_canon`` with ``diag_tables``
   (``_fused_cheb_canon_dg``): K3 with the Jacobi diagonal rebuilt per
   point from the level's 1D diagonals, so no D^-1 field is read;
+* K8 ``cheb_pair_dg`` — ``fused_cheb_pair_canon``: two K3dg steps in one
+  pass (stage 1 on the tile grown by p, stage 2 on the tile), 6 field
+  passes for two steps; the unsharded V-cycle takes it only when asked
+  (``cheb_pair``), as the JAX package's ``SPIRK_CHEB_PAIR`` switch does;
 * K4 ``stencil_apply`` — ``fused_stencil_apply_canon``: (a_i M + b K) u_i,
   3D and 2D (``_make_kernel_2d``);
 * K5 ``mass_stiffness_apply`` — ``fused_mass_stiffness_apply_canon`` and
@@ -67,6 +71,7 @@ LAUNCHES = {
     "stage_mix": 0,
     "cheb_iter": 0,
     "cheb_iter_dg": 0,
+    "cheb_pair_dg": 0,
     "stencil_apply": 0,
     "stencil_apply_2d": 0,
     "mass_stiffness_apply": 0,
@@ -134,6 +139,13 @@ def cheb_iter_dg_ref(ops: LevelOps, a, b, c1, c2, d, r, x):
     return cheb_chain(
         lambda u: stencil_apply_ref(ops, a, b, u), lambda t: t / diag, c1, c2, d, r, x
     )
+
+
+def cheb_pair_dg_ref(ops: LevelOps, a, b, c1a, c2a, c1b, c2b, d, r, x):
+    """Two chained K3dg steps, coefficients (c1a, c2a) then (c1b, c2b):
+    what K8 computes in one pass."""
+    r, d, x = cheb_iter_dg_ref(ops, a, b, c1a, c2a, d, r, x)
+    return cheb_iter_dg_ref(ops, a, b, c1b, c2b, d, r, x)
 
 
 def _interior(ops: LevelOps, t: torch.Tensor) -> torch.Tensor:
@@ -319,6 +331,28 @@ def cheb_iter_dg(ops: LevelOps, a, b, c1, c2, d, r, x):
         ops.mass_band, ops.stiff_band, w, q, m, p,
     )
     LAUNCHES["cheb_iter_dg"] += 1
+    return r_out, d_out, x_out
+
+
+def cheb_pair_dg(ops: LevelOps, a, b, c1a, c2a, c1b, c2b, d, r, x):
+    """K8: two Chebyshev steps in one pass, the Jacobi diagonal rebuilt per
+    point as in K3dg; returns new tensors (r'', d'', x'').  3D only."""
+    if _on_cpu(d, r, x, ops.mass_band):
+        return cheb_pair_dg_ref(ops, a, b, c1a, c2a, c1b, c2b, d, r, x)
+    if d.ndim != 4:
+        raise ValueError("cheb_pair_dg takes 3D stage blocks (q, m, m, m)")
+    q, m, p = _check_block(ops, d, "d")
+    for t, name in ((r, "r"), (x, "x")):
+        _check_field(t, d.shape, name)
+    for t in (ops.mass_diag, ops.stiff_diag):
+        _check_field(t, (m,), "1D diagonal")
+    r_out, d_out, x_out = (torch.empty_like(d) for _ in range(3))
+    w = _coefs(q, d.device, a, b, c1a, c2a, c1b, c2b)
+    _launch(
+        "spirk_cheb_pair_dg", d, r, x, ops.mass_diag, ops.stiff_diag, r_out, d_out, x_out,
+        ops.mass_band, ops.stiff_band, w, q, m, p,
+    )
+    LAUNCHES["cheb_pair_dg"] += 1
     return r_out, d_out, x_out
 
 

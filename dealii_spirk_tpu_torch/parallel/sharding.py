@@ -18,6 +18,12 @@ offers the few vector operations the Krylov solvers and the smoother use
 masked selection), so a plain tensor and a sharded block go through the
 same solver code.
 
+The complex schemes keep their (re, im) pair blocks ``(n2, 2, *spatial)``
+on the mesh with the pair axis on the stage rows (``scatter_pairs``): a
+slot holds ``(n2_loc, 2, nz_loc, m, m)``, its z axis second.
+``pair_view`` and ``lane_view`` switch between that and the 2 n2 lanes
+``(2 n2_loc, nz_loc, m, m)`` that the kernels take, without a copy.
+
 ``send`` is the one place where data passes from slot to slot; it counts
 the bytes by kind in ``EXCHANGE``, as ``LAUNCHES`` counts kernel launches.
 """
@@ -153,12 +159,14 @@ class ShardedBlock:
 
     ``one_lane`` marks the view ``block[None]`` that the unbatched GMRES
     takes: the whole block is then one lane (``shape[0] == 1``, dots give
-    one sum), otherwise every stage is a lane."""
+    one sum), otherwise every stage is a lane.  ``z_axis``: the axis of the
+    local tensors that the space slots split (2 for a pair block)."""
 
-    def __init__(self, mesh: SlotMesh, parts, one_lane: bool = False):
+    def __init__(self, mesh: SlotMesh, parts, one_lane: bool = False, z_axis: int = 1):
         self.mesh = mesh
         self.parts = [list(row) for row in parts]
         self.one_lane = one_lane
+        self.z_axis = z_axis
 
     # -- what the solvers read ------------------------------------------------
     @property
@@ -171,9 +179,9 @@ class ShardedBlock:
 
     @property
     def shape(self) -> tuple[int, ...]:
-        first = self.parts[0]
-        rest = tuple(first[0].shape[2:])
-        shape = (self.q, sum(t.shape[1] for t in first)) + rest
+        first, za = self.parts[0], self.z_axis
+        local = tuple(first[0].shape)
+        shape = (self.q,) + local[1:za] + (sum(t.shape[za] for t in first),) + local[za + 1 :]
         return (1,) + shape if self.one_lane else shape
 
     @property
@@ -191,9 +199,9 @@ class ShardedBlock:
 
     def __getitem__(self, key):
         if key is None and not self.one_lane:
-            return ShardedBlock(self.mesh, self.parts, one_lane=True)
+            return ShardedBlock(self.mesh, self.parts, True, self.z_axis)
         if key == 0 and self.one_lane:
-            return ShardedBlock(self.mesh, self.parts)
+            return ShardedBlock(self.mesh, self.parts, False, self.z_axis)
         raise IndexError("a sharded block only takes [None] and its inverse [0]")
 
     # -- per-slot maps ---------------------------------------------------------
@@ -207,7 +215,7 @@ class ShardedBlock:
     def map_slots(self, fn: Callable) -> "ShardedBlock":
         """``fn(i, j, local)`` on every slot."""
         parts = [[fn(i, j, t) for j, t in enumerate(row)] for i, row in enumerate(self.parts)]
-        return ShardedBlock(self.mesh, parts, self.one_lane)
+        return ShardedBlock(self.mesh, parts, self.one_lane, self.z_axis)
 
     def rows(self, c, i: int, j: int):
         """What slot (i, j) takes of a coefficient: a number as it is; of a
@@ -314,7 +322,60 @@ def scatter(W: torch.Tensor, mesh: SlotMesh, kind: str | None = "state") -> Shar
 
 
 def gather(block: ShardedBlock, device=None, kind: str = "state") -> torch.Tensor:
-    """The whole stage block (q, *spatial) on ``device``."""
+    """The whole stage block (q, *spatial) on ``device`` (a pair block:
+    (n2, 2, *spatial))."""
     device = block.device if device is None else device
-    rows = [torch.cat([send(t, device, kind) for t in row], dim=1) for row in block.parts]
+    rows = [torch.cat([send(t, device, kind) for t in row], dim=block.z_axis)
+            for row in block.parts]
     return torch.cat(rows)
+
+
+# ---------------------------------------------------------------------------
+# pair blocks of the complex schemes
+# ---------------------------------------------------------------------------
+
+
+def pair_view(lanes):
+    """The 2 n2 lanes (re, im of pair j at lanes 2j, 2j + 1) as the pair
+    block: every slot's (2 n2_loc, nz, ...) viewed as (n2_loc, 2, nz, ...);
+    a plain tensor (2 n2, *spatial) as (n2, 2, *spatial)."""
+    if isinstance(lanes, torch.Tensor):
+        return lanes.reshape((lanes.shape[0] // 2, 2) + tuple(lanes.shape[1:]))
+    if lanes.z_axis != 1 or lanes.q_loc % 2:
+        raise ValueError("a pair view takes a block of whole (re, im) lane pairs")
+    parts = [[pair_view(t) for t in row] for row in lanes.parts]
+    return ShardedBlock(lanes.mesh, parts, lanes.one_lane, z_axis=2)
+
+
+def lane_view(pairs):
+    """The inverse of ``pair_view``: every slot's pairs as 2 n2_loc lanes."""
+    if isinstance(pairs, torch.Tensor):
+        return pairs.reshape((2 * pairs.shape[0],) + tuple(pairs.shape[2:]))
+    if pairs.z_axis != 2:
+        raise ValueError("a lane view takes a pair block")
+    parts = [[lane_view(t) for t in row] for row in pairs.parts]
+    return ShardedBlock(pairs.mesh, parts, pairs.one_lane)
+
+
+def scatter_pairs(Z: torch.Tensor, mesh: SlotMesh, kind: str | None = "state") -> ShardedBlock:
+    """Split a whole pair block (n2, 2, *spatial) over the mesh: the pairs
+    over the stage rows (pair j on row j when the stage axis is n2), both
+    components of a pair on one row, the z axis over the space slots."""
+    return pair_view(scatter(lane_view(Z), mesh, kind))
+
+
+def pair_component(pairs, c: int):
+    """Component c (0: re, 1: im) of a pair block or of a plain (n2, 2,
+    *spatial) tensor, one lane per pair (views)."""
+    if isinstance(pairs, torch.Tensor):
+        return pairs[:, c]
+    return ShardedBlock(pairs.mesh, [[t[:, c] for t in row] for row in pairs.parts],
+                        pairs.one_lane)
+
+
+def stack_pairs(re, im):
+    """The pair block of two one-lane-per-pair blocks (or plain tensors)."""
+    if isinstance(re, torch.Tensor):
+        return torch.stack([re, im], dim=1)
+    parts = [[stack_pairs(a, b) for a, b in zip(ra, rb)] for ra, rb in zip(re.parts, im.parts)]
+    return ShardedBlock(re.mesh, parts, re.one_lane, z_axis=2)

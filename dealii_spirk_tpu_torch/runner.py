@@ -32,7 +32,9 @@ def run_config(
     on the mesh that ``make_mesh`` builds from ``slots`` slots on
     ``device`` (default: the stage axis size, a (stage, 1) mesh) and the
     configuration's MaxRanks, DoRowMajor and Padding.  ``scheme_options``
-    go to the scheme's constructor (``kernels``, ``tables``, ``start``)."""
+    go to the scheme's constructor (``kernels``, ``tables``, ``start``,
+    ``cheb_pair``: K8 on the unsharded V-cycles, default from
+    ``SPIRK_CHEB_PAIR``)."""
     if table is None:
         table = ConvergenceTable()
     say = print if verbose else (lambda *a, **k: None)

@@ -15,10 +15,13 @@ import warnings
 import numpy as np
 import torch
 
+from .. import config
 from ..config import Parameters
 from ..fem.functions import rhs_time_factor
 from ..ops.cuda import stencil as st
 from ..ops.mass_laplace import apply_stiffness
+from ..parallel.mesh import SlotMesh, make_mesh
+from ..parallel.sharding import canon_shardable
 from ..problem import HeatProblem
 from ..solvers.gmg import build_gmg_data
 from ..solvers.krylov import COMPACT_BASIS, COMPACT_GRID_DOFS
@@ -137,11 +140,15 @@ class RadauScheme(SchemeBase):
         kernels: bool | None = None,
         tables: IRKTables | None = None,
         start=None,
+        cheb_pair: bool | None = None,
     ):
         """``kernels``: run the hand-written kernels (default: when the
         configuration's operator mode on this device is "pallas").
         ``tables``: Butcher/diagonalisation tables (default: computed).
-        ``start``: Lanczos start vectors for ``gmg_reinit``."""
+        ``start``: Lanczos start vectors for ``gmg_reinit``.
+        ``cheb_pair``: let the unsharded kernel V-cycles take two Chebyshev
+        steps per K8 launch (``gmg.vcycle``; default ``config.CHEB_PAIR``,
+        off unless ``SPIRK_CHEB_PAIR=1``)."""
         super().__init__(problem, params)
         mode = params.operator_mode(self.device)
         if mode == "dense":
@@ -154,11 +161,33 @@ class RadauScheme(SchemeBase):
         self.A_inv = self.tensor(self.tables.A_inv)
         self.b_vec, self.c_vec = self.tensor(self.tables.b), self.tensor(self.tables.c)
         self.start = start
+        self.cheb_pair = config.CHEB_PAIR if cheb_pair is None else cheb_pair
         # the JAX package's huge-grid GMRES policy (schemes/irk.py:116)
         self.compact = self.fine.m**self.dim > COMPACT_GRID_DOFS
         self.restart = COMPACT_BASIS if self.compact else GMRES_RESTART
         # per-step solver counts of every step (never cleared)
         self.step_log: list[dict] = []
+
+    def fit_mesh(self, mesh: SlotMesh | None, n_stage: int) -> SlotMesh:
+        """The slot mesh of a stage-parallel scheme: ``mesh``, or one slot
+        per stage row on the problem's device.  Where the fine level does
+        not split over its space axis (2D, or a z extent that
+        ``canon_shardable`` refuses) the mesh narrows to its first space
+        column with a RuntimeWarning; a field is never gathered to run it
+        whole."""
+        if mesh is None:
+            mesh = make_mesh(n_stage, devices=[self.device] * n_stage)
+        fine, dim = self.fine, self.dim
+        if mesh.n_space > 1 and not canon_shardable((fine.m,) * dim, fine.p, dim, mesh.n_space):
+            warnings.warn(
+                f"the {dim}D fine level (m={fine.m}, degree {fine.p}) does not split "
+                f"over {mesh.n_space} space slots: running on the mesh's first space "
+                f"column, a ({mesh.n_stage}, 1) mesh",
+                RuntimeWarning,
+                stacklevel=5,
+            )
+            mesh = mesh.first_space_column()
+        return mesh
 
     def tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=self.dtype, device=self.device)

@@ -48,16 +48,14 @@ runs past them warns: deal.II's 30-vector basis would not have restarted.
 
 from __future__ import annotations
 
-import warnings
-
 import numpy as np
 import torch
 
 from ..ops.cuda import sharded as shk
 from ..ops.cuda import stencil as st
-from ..parallel.mesh import SlotMesh, make_mesh
+from ..parallel.mesh import SlotMesh
 from ..parallel.ring import allgather_stage_mix, ring_stage_mix
-from ..parallel.sharding import canon_shardable, gather, scatter
+from ..parallel.sharding import gather, scatter
 from ..solvers.gmg import gmg_reinit, scatter_prec, stage_prec, vcycle
 from ..solvers.krylov import gmres, pcg
 from .base import RadauScheme
@@ -77,22 +75,10 @@ class IRK(RadauScheme):
             self._init_mesh(mesh)
 
     def _init_mesh(self, mesh: SlotMesh | None) -> None:
-        q, fine = self.q, self.fine
-        if mesh is None:
-            mesh = make_mesh(q, devices=[self.device] * q)
+        q = self.q
+        mesh = self.fit_mesh(mesh, q)
         if q % mesh.n_stage:
             raise ValueError(f"{q} stages do not split over a stage axis of {mesh.n_stage}")
-        if mesh.n_space > 1 and not canon_shardable(
-            (fine.m,) * self.dim, fine.p, self.dim, mesh.n_space
-        ):
-            warnings.warn(
-                f"the {self.dim}D fine level (m={fine.m}, degree {fine.p}) does not split "
-                f"over {mesh.n_space} space slots: running on the mesh's first space "
-                f"column, a ({mesh.n_stage}, 1) mesh",
-                RuntimeWarning,
-                stacklevel=4,
-            )
-            mesh = mesh.first_space_column()
         self.mesh = mesh
         # the mixers take their matrices on the host (parallel/ring.py)
         self._host = {
@@ -100,7 +86,7 @@ class IRK(RadauScheme):
         }
         self.ring = not self.params.use_sm and mesh.n_stage == q
         self._mixer = ring_stage_mix if self.ring else allgather_stage_mix
-        self.fine_level = shk.shard_level(fine, mesh, self.dim)
+        self.fine_level = shk.shard_level(self.fine, mesh, self.dim)
 
     def mix(self, name: str, W):
         """The stage mix by ``A_inv``, ``T`` or ``T_inv`` on the mesh."""
@@ -171,7 +157,8 @@ class IRK(RadauScheme):
         d_i = self.d_vec[i : i + 1]
 
         def V(r):
-            return vcycle(self.gmg, prec_i, d_i, tau, r, self.dim, kernels=self.kernels)
+            return vcycle(self.gmg, prec_i, d_i, tau, r, self.dim, kernels=self.kernels,
+                          cheb_pair=self.cheb_pair)
 
         inner_tol = self.params.inner_tolerance
         if inner_tol <= 0.0:
@@ -220,7 +207,8 @@ class IRK(RadauScheme):
                     carry[i] += n
                 z = torch.cat(outs)
             else:
-                z = vcycle(self.gmg, prec, self.d_vec, tau, z, dim, kernels=k)
+                z = vcycle(self.gmg, prec, self.d_vec, tau, z, dim, kernels=k,
+                           cheb_pair=self.cheb_pair)
                 carry = carry + 1
             return mix(self.T, z), carry
 

@@ -10,7 +10,10 @@ smoother (``solvers/gmg.py::_chebyshev_canon``) runs it: the entry step
 (with the residual ``b - A x0`` when an initial guess is given) and then
 ``degree - 1`` fused iterations, each one call of ``cheb_iter``.  The
 caller passes the operator pieces, so the same code runs the CUDA kernels
-(K4 ``stencil_apply``, K3 ``cheb_iter``) or their plain versions.
+(K4 ``stencil_apply``, K3 ``cheb_iter``) or their plain versions.  Given
+``cheb_pair`` it takes the iterations two at a time, then the odd one
+singly, as the JAX package's ``body2`` / ``use_pair`` loop does
+(``solvers/gmg.py:572-603``).
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ def chebyshev_apply(
     *,
     x0: torch.Tensor | None = None,
     degree: int = 5,
+    cheb_pair: Callable | None = None,
 ) -> torch.Tensor:
     """Chebyshev-accelerated Jacobi iteration of the given degree on a
     stage block ``b`` (q, *spatial) with per-stage ``theta``/``delta``.
@@ -62,6 +66,11 @@ def chebyshev_apply(
     ``x0=None`` this is the preconditioner application (deal.II ``vmult``,
     zero initial guess — GMG pre-smoothing); with an initial guess it is
     the smoother ``step`` used for post-smoothing.
+
+    ``cheb_pair(c1a, c2a, c1b, c2b, d, r, x)``: two steps in one call (K8),
+    the first with (c1a, c2a), the second with (c1b, c2b); with it the
+    ``degree - 1`` steps run as floor((degree - 1) / 2) pair calls and, for
+    an even degree, one last ``cheb_iter``.
     """
     lanes = (b.shape[0],) + (1,) * (b.ndim - 1)
     theta_b = theta.reshape(lanes)
@@ -70,7 +79,15 @@ def chebyshev_apply(
     x = d if x0 is None else x0 + d
     sigma = theta / delta
     rho = 1.0 / sigma
-    for _ in range(degree - 1):
+    n_pair, n_single = divmod(degree - 1, 2) if cheb_pair is not None else (0, degree - 1)
+    for _ in range(n_pair):
+        rho1 = 1.0 / (2.0 * sigma - rho)
+        rho2 = 1.0 / (2.0 * sigma - rho1)
+        r, d, x = cheb_pair(
+            rho1 * rho, 2.0 * rho1 / delta, rho2 * rho1, 2.0 * rho2 / delta, d, r, x
+        )
+        rho = rho2
+    for _ in range(n_single):
         rho_new = 1.0 / (2.0 * sigma - rho)
         r, d, x = cheb_iter(rho_new * rho, 2.0 * rho_new / delta, d, r, x)
         rho = rho_new

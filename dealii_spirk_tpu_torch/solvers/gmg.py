@@ -15,7 +15,10 @@ CUDA kernels (3D: K3 ``cheb_iter``, or K3dg ``cheb_iter_dg`` on the large
 levels of ``cheb_diag_level``, and K4 ``stencil_apply``; 2D: the
 elementwise Chebyshev chain over K4-2D, as the JAX package smooths 2D
 with its apply kernel, ``solvers/gmg.py:471-477``; on CPU tensors the
-wrappers run their plain versions); with ``kernels=False`` the same
+wrappers run their plain versions).  With ``cheb_pair=True`` as well, the
+levels of ``cheb_pair_level`` take their Chebyshev steps two at a time
+through K8 ``cheb_pair_dg`` (the JAX package's ``SPIRK_CHEB_PAIR``; off by
+default there and here); with ``kernels=False`` the same
 structure runs the plain torch operators.  The sequential ``irk`` scheme
 runs it on one stage at a time with ``stage_prec``.  Grid transfers are
 dense 1D contractions (``apply_dense_1d``) and the coarse solve a batched
@@ -30,7 +33,10 @@ h-plane exchanges and local contractions, and a level too small to split is
 gathered onto the first space slot of its stage row, solved there by the
 unsharded level code on that row's stages and scattered back (the
 reference coarsens onto fewer ranks the same way,
-``preconditioner.h:287-339``).
+``preconditioner.h:287-339``).  The mesh V-cycle takes single Chebyshev
+steps whatever ``cheb_pair`` says: the JAX package's pair kernel has no
+sharded form (``solvers/gmg.py:596``), and so the port runs the
+reference's semantics there.
 """
 
 from __future__ import annotations
@@ -73,6 +79,30 @@ def cheb_diag_level(m: int, dim: int) -> bool:
     """Whether the kernel V-cycle smooths a level of m points per axis
     with K3dg (``CHEB_DIAG_MIN_POINTS``)."""
     return dim == 3 and m**dim >= CHEB_DIAG_MIN_POINTS
+
+
+# The pair budget of the JAX package's K8 (``_cheb2_by``, stencil.py:2025-
+# 2045): its smallest window — 8 y rows and 16 more, 8 + 4p planes of d,
+# 8 + 2p of r and the stage-1 fields, whole x rows padded to 128 lanes —
+# must fit 11 MiB of VMEM.
+PAIR_WINDOW_BYTES = 11 * 2**20
+
+
+def cheb_pair_level(m: int, dim: int, p: int) -> bool:
+    """Whether a ``cheb_pair`` V-cycle smooths a level of m points per axis
+    at degree p with K8: the K3dg levels where the JAX package pairs steps
+    with its switch on (``cheb2_supported``), i.e. where its pair window
+    fits ``PAIR_WINDOW_BYTES``.  K8's tile on the H100 does not depend on
+    m (it shrinks with p only); the rule keeps both packages pairing the
+    same levels (on refinements 3-8 at degrees 1-4 every K3dg level but
+    p = 3, m = 767 and p = 4, m >= 511)."""
+    if not cheb_diag_level(m, dim):
+        return False
+    bz, by, byw = 8, 8, 24
+    ez = bz + 2 * p
+    nx_p = -(-m // 128) * 128
+    floats = (2 * (bz + 4 * p) + 2 * ez + 8 * ez + 6 * bz) * byw + 8 * bz * by
+    return floats * nx_p * 4 <= PAIR_WINDOW_BYTES
 
 
 @dataclass(frozen=True)
@@ -350,12 +380,15 @@ def vcycle(
     kernels: bool,
     mesh: SlotMesh | None = None,
     top: int | None = None,
+    cheb_pair: bool = False,
 ):
     """One stage-batched V-cycle approximating (a_i M + b K)^-1 r_i
     (``a``, ``prec`` and ``r`` share the stage axis).  ``top``: start at
     that level instead of the finest.  ``mesh``: ``prec`` is a
     ``MeshPrec`` and ``r`` a ``ShardedBlock`` on that mesh (see the module
-    docstring); the result is one too.
+    docstring); the result is one too.  ``cheb_pair``: with ``kernels``,
+    smooth the ``cheb_pair_level`` levels by K8, two steps per launch
+    (ignored on a mesh).
 
     Per level: pre-smoothing from a zero initial guess, the residual
     ``r - A x`` restricted to the next coarser level, the coarse
@@ -371,6 +404,7 @@ def vcycle(
 
     def smooth(l: int, rl: torch.Tensor, x0: torch.Tensor | None = None):
         ops, invd = gmg.level_ops[l], prec.inv_diags[l]
+        pair = None
 
         def apply(u):
             return apply_fn(ops, a, b, u)
@@ -385,6 +419,11 @@ def vcycle(
 
             def step(c1, c2, d, rr, x):
                 return st.cheb_iter_dg(ops, a, b, c1, c2, d, rr, x)
+
+            if cheb_pair and cheb_pair_level(ops.m, dim, ops.p):
+
+                def pair(c1a, c2a, c1b, c2b, d, rr, x):
+                    return st.cheb_pair_dg(ops, a, b, c1a, c2a, c1b, c2b, d, rr, x)
 
         else:
 
@@ -405,6 +444,7 @@ def vcycle(
             rl,
             x0=x0,
             degree=SMOOTHER_DEGREE,
+            cheb_pair=pair,
         )
 
     def solve(l: int, rl: torch.Tensor) -> torch.Tensor:

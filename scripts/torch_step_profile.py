@@ -8,9 +8,12 @@ Runs the path's configuration from ``chip_smoke.PATHS`` (P1: 3D
 ``irk_batched``, q=4; P2: 3D ``irk``, q=5; P3: 2D ``irk_batched``, q=4;
 P4: 3D ``complex_irk_batched``, q=5, refinement 8; P5: 3D ``complex_irk``
 (PRESB), q=5; P6: 3D ``spirk``, q=5, on a (5, 2) slot mesh; P7: 3D
-``spirk``, q=2, refinement 8, on a (2, 2) slot mesh — the slots of
-``chip_smoke.SLOTS``, all on the one card; all MatrixFree + GMG, InnerTolerance 0, OuterTolerance
-1e-4, Q1, f32, dt 0.1) for two warm-up steps, then profiles the next step with
+``spirk``, q=2, refinement 8, on a (2, 2) slot mesh; P8: 3D
+``complex_spirk_batched``, q=5, on a (3, 2) mesh; P9: 3D ``complex_spirk``
+(PRESB), q=5, on a (3, 2) mesh — the slots of ``chip_smoke.SLOTS``, all on
+the one card; P10: P4 with ``cheb_pair=True`` (K8 on the 255 level); all
+MatrixFree + GMG, InnerTolerance 0, OuterTolerance 1e-4, Q1, f32, dt 0.1)
+for two warm-up steps, then profiles the next step with
 ``torch.profiler``: the step's wall time (host clock
 around work that ends in a synchronise), the summed device time of its
 kernels and the device's idle share, the number of kernel launches, and
@@ -33,12 +36,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main(argv=None) -> int:
-    from chip_smoke import PATHS, SLOTS
+    from chip_smoke import PAIR_STEPPED, PATHS, SLOTS
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--path", default="P1", choices=tuple(PATHS))
     ap.add_argument("--refinement", type=int, default=None,
-                    help="default: the path's own (7, 7, 10, 8, 7, 7, 8)")
+                    help="default: the path's own (7, 7, 10, 8, 7, 7, 8, 7, 7, 8)")
     ap.add_argument("--plain", action="store_true")
     ap.add_argument("--trace", default=None)
     ap.add_argument("--top", type=int, default=12)
@@ -63,7 +66,8 @@ def main(argv=None) -> int:
         mesh = make_mesh(params.stage_axis_size, devices=[device] * SLOTS[args.path],
                          max_ranks=params.max_ranks, do_row_major=params.do_row_major,
                          padding=params.padding)
-    scheme = make_scheme(problem, params, kernels=not args.plain, mesh=mesh)
+    scheme = make_scheme(problem, params, kernels=not args.plain, mesh=mesh,
+                         cheb_pair=args.path in PAIR_STEPPED)
     tau = params.time_step_size
     u = scheme.solve_step(problem.initial_condition(), 1, tau, tau)
     u = scheme.solve_step(u, 2, 2 * tau, tau)  # second warm-up (allocator, caches)
