@@ -332,20 +332,28 @@ __device__ inline void mass_stiff_y2(const float* in, float* A, float* B,
   __syncthreads();
 }
 
-// x pass at one output point: mu = Mx A, ku = Mx B + Kx A.
+// x pass at one output point: mu = Mx A, ku = Kx A + Mx B, the stiffness
+// taps summed in an accumulator of their own.  For a smooth field Kx A is a
+// 1e-5 share of its terms at m = 1023: adding each small mass term into the
+// same accumulator rounded every partial sum at the terms' scale, an error
+// biased with the field (mean 7e-9 of max|K u| against 8e-11 kept apart, an
+// f32 model of both orders), which GMRES takes into the solution: P3's L2
+// came out 2.5x the f64 value (PERF.md, section 6).
 template <int P>
 __device__ inline void mass_stiff_x2(const float* A, const float* B, const Bands2<P>& bd,
                                      int ly, int lx, float& mu, float& ku) {
   using T = Tile2<P>;
   int base = ly * T::HX + lx;
+  float kx = 0.f, mb = 0.f;
   mu = 0.f;
-  ku = 0.f;
 #pragma unroll
   for (int k = 0; k < T::NB; ++k) {
     float wm = bd.xm(k, lx), wk = bd.xk(k, lx);
-    mu += wm * A[base + k];
-    ku += wm * B[base + k] + wk * A[base + k];
+    mu = fmaf(wm, A[base + k], mu);
+    kx = fmaf(wk, A[base + k], kx);
+    mb = fmaf(wm, B[base + k], mb);
   }
+  ku = kx + mb;
 }
 
 // Dynamic shared memory beyond 48 KB needs the opt-in attribute once per

@@ -29,11 +29,12 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C entry points: name -> argtypes (every one returns a cudaError_t as int)
 SIGNATURES = {
-    # u, out, mband, kband, w, q, m, p, stream
-    "spirk_stencil_apply": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
-    "spirk_stencil_apply_2d": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # u, out, mband, kband, a (q,), b, q, m, p, stream
+    "spirk_stencil_apply": (_P, _P, _P, _P, _P, _F, _I, _I, _I, _P),
+    "spirk_stencil_apply_2d": (_P, _P, _P, _P, _P, _F, _I, _I, _I, _P),
     # u, mu, ku, mband, kband, q, m, p, stream
     "spirk_mass_stiffness_apply": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "spirk_mass_stiffness_apply_2d": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
@@ -44,7 +45,7 @@ SIGNATURES = {
     # the pair step, K8: the same arguments, w (q, 6)
     "spirk_cheb_pair_dg": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # the z-slab forms: ..., q, m, nzl, z_off, p, stream
-    "spirk_stencil_apply_halo": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "spirk_stencil_apply_halo": (_P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P),
     "spirk_mass_stiffness_apply_halo": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "spirk_cheb_iter_halo": (_P,) * 10 + (_I,) * 5 + (_P,),
     "spirk_cheb_iter_dg_halo": (_P,) * 11 + (_I,) * 5 + (_P,),

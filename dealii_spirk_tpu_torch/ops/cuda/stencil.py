@@ -197,12 +197,12 @@ def ms_mix_apply_ref(ops: LevelOps, Ainv: torch.Tensor, tau, u: torch.Tensor):
 
 
 def _on_cpu(*ts: torch.Tensor) -> bool:
+    if all(t.is_cuda for t in ts):
+        return False
     kinds = {t.device.type for t in ts}
     if kinds == {"cpu"}:
         return True
-    if kinds != {"cuda"}:
-        raise ValueError(f"tensors must all lie on the CPU or all on CUDA: {kinds}")
-    return False
+    raise ValueError(f"tensors must all lie on the CPU or all on CUDA: {kinds}")
 
 
 def _check_field(t: torch.Tensor, shape: tuple, name: str) -> None:
@@ -221,12 +221,10 @@ def _check_block(ops: LevelOps, u: torch.Tensor, name: str) -> tuple[int, int, i
         )
     q, m = u.shape[0], ops.m
     _check_field(u, (q,) + (m,) * (u.ndim - 1), name)
-    for band in (ops.mass_band, ops.stiff_band):
-        _check_field(band, tuple(band.shape), "band table")
-        if band.device != u.device:
-            raise ValueError("band tables and fields must share a device")
-    if not 1 <= ops.p <= 4:
-        raise ValueError(f"the CUDA kernels take degrees 1-4, got p={ops.p}")
+    if not ops.kernel_bands:
+        raise ValueError("the CUDA kernels take f32 contiguous band tables of degree 1-4")
+    if ops.mass_band.device != u.device:
+        raise ValueError("band tables and fields must share a device")
     return q, m, ops.p
 
 
@@ -243,20 +241,45 @@ def _coefs(q: int, device, *cols) -> torch.Tensor:
     return torch.stack(out, dim=1).contiguous()
 
 
+def _stage_coefs(a, q: int, device) -> torch.Tensor:
+    """``a`` as the contiguous f32 (q,) table that K4 and K9a read by
+    pointer: a (q,) f32 contiguous tensor on ``device`` as it is (no copy,
+    no device op), any other (q,) or 0-d tensor converted, a Python scalar
+    filled in."""
+    if not isinstance(a, torch.Tensor):
+        return torch.full((q,), float(a), dtype=torch.float32, device=device)
+    if a.ndim == 0:
+        a = a.expand(q)
+    if a.shape != (q,):
+        raise ValueError(f"per-stage coefficients: expected shape ({q},), got {tuple(a.shape)}")
+    if a.dtype == torch.float32 and a.is_contiguous() and a.device == device:
+        return a
+    return a.to(device=device, dtype=torch.float32).contiguous()
+
+
 def _launch(name: str, *args) -> None:
+    """Launch entry point ``name`` on the first tensor's device (the slots of
+    a mesh may lie on several), each tensor passed as its data pointer."""
+    _launch_raw(name, args[0].device,
+                *[a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args])
+
+
+def _launch_raw(name: str, device: torch.device, *args) -> None:
+    """Launch entry point ``name`` on ``device``'s current stream with
+    ``args`` as they are (pointers as ints); raise if it was refused."""
     from .build import load_library
 
-    lib = load_library()
-    conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    # on the first tensor's device (the slots of a mesh may lie on several)
-    device = args[0].device
+    fn = getattr(load_library(), name)
+    # the current stream's handle, without building a torch.cuda.Stream
+    # (the call PyTorch's generated kernels launch with)
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
     if device.index == torch.cuda.current_device():
-        err = getattr(lib, name)(*conv, torch.cuda.current_stream().cuda_stream)
+        err = fn(*args, stream)
     else:
         with torch.cuda.device(device):
-            err = getattr(lib, name)(*conv, torch.cuda.current_stream().cuda_stream)
+            err = fn(*args, stream)
     if err != 0:
-        msg = lib.spirk_error_string(err).decode()
+        msg = load_library().spirk_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
 
 
@@ -267,14 +290,16 @@ def _entry(name: str, u: torch.Tensor) -> str:
 
 def stencil_apply(ops: LevelOps, a, b, u: torch.Tensor) -> torch.Tensor:
     """K4 (3D) / K4-2D: (a_i M + b K) u_i per stage; ``a`` scalar or (q,),
-    ``b`` scalar."""
+    ``b`` a Python scalar (passed by value: a launch is one device op)."""
     if _on_cpu(u, ops.mass_band):
         return stencil_apply_ref(ops, a, b, u)
     q, m, p = _check_block(ops, u, "u")
+    device = u.device
     out = torch.empty_like(u)
-    w = _coefs(q, u.device, a, b)
+    coefs = _stage_coefs(a, q, device)  # held until the launch is queued
     name = _entry("stencil_apply", u)
-    _launch("spirk_" + name, u, out, ops.mass_band, ops.stiff_band, w, q, m, p)
+    _launch_raw("spirk_" + name, device, u.data_ptr(), out.data_ptr(), ops.mass_band.data_ptr(),
+                ops.stiff_band.data_ptr(), coefs.data_ptr(), float(b), q, m, p)
     LAUNCHES[name] += 1
     return out
 
@@ -381,9 +406,8 @@ def stencil_apply_halo(ops: LevelOps, a, b, u_h: torch.Tensor) -> torch.Tensor:
         return stencil_apply_halo_ref(ops, a, b, u_h)
     q, m, p, nzl = _check_slab(ops, u_h, "u_h")
     out = torch.empty((q, nzl, m, m), dtype=u_h.dtype, device=u_h.device)
-    w = _coefs(q, u_h.device, a, b)
-    _launch("spirk_stencil_apply_halo", u_h, out, ops.mass_band, ops.stiff_band, w,
-            q, m, nzl, ops.z_off, p)
+    _launch("spirk_stencil_apply_halo", u_h, out, ops.mass_band, ops.stiff_band,
+            _stage_coefs(a, q, u_h.device), float(b), q, m, nzl, ops.z_off, p)
     LAUNCHES["stencil_apply_halo"] += 1
     return out
 
@@ -464,9 +488,10 @@ def stage_mix(mat: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     if W.shape[0] != qi or max(qo, qi) > QMAX:
         raise ValueError(f"stage_mix takes (q_out, q_in) <= {QMAX} matching W")
     _check_field(W, tuple(W.shape), "W")
-    n = W[0].numel()
-    out = torch.empty((qo,) + tuple(W.shape[1:]), dtype=W.dtype, device=W.device)
-    mat32 = mat.to(torch.float32).contiguous()
-    _launch("spirk_stage_mix", W, out, mat32, qo, qi, n)
+    out = W.new_empty((qo,) + tuple(W.shape[1:]))
+    if mat.dtype != torch.float32 or not mat.is_contiguous():
+        mat = mat.to(torch.float32).contiguous()
+    _launch_raw("spirk_stage_mix", W.device, W.data_ptr(), out.data_ptr(), mat.data_ptr(),
+                qo, qi, W.numel() // qi)
     LAUNCHES["stage_mix"] += 1
     return out

@@ -19,7 +19,7 @@ Parity with the reference's L3 layer:
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
@@ -42,6 +42,15 @@ class LevelOps:
     z_off: int = 0
     z_mass_band: torch.Tensor | None = None
     z_stiff_band: torch.Tensor | None = None
+    # whether the CUDA kernels take these bands (f32, contiguous, on one
+    # device, degree 1-4): checked once here, read by the kernel wrappers
+    kernel_bands: bool = field(init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        bands = (self.mass_band, self.stiff_band)
+        ok = (all(b.dtype == torch.float32 and b.is_contiguous() for b in bands)
+              and self.stiff_band.device == self.mass_band.device and 1 <= self.p <= 4)
+        object.__setattr__(self, "kernel_bands", ok)
 
     @property
     def m(self) -> int:

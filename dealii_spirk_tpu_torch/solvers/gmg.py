@@ -41,7 +41,7 @@ reference's semantics there.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 from typing import Callable
 
 import numpy as np
@@ -283,7 +283,8 @@ def _to_device(obj, device):
             return _to_device(v, device)
         return v
 
-    return type(obj)(**{k: move(v) for k, v in vars(obj).items()})
+    return type(obj)(**{f.name: move(getattr(obj, f.name))
+                        for f in fields(obj) if f.init})
 
 
 def row_prec(prec: GMGPrec, rows: slice) -> GMGPrec:
