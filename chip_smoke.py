@@ -45,9 +45,9 @@ Phases; any failure exits non-zero:
 2. build: compiles ``dealii_spirk_tpu_torch/csrc`` with nvcc, one process
    per source, all started together;
 3. kernels: the 2D kernels of P3 on a smooth field at its finest level
-   (``smooth_bias``): each kernel's mean error against the f64 plain
-   version within SMOOTH_BIAS times its f32 plain version's (a rounding
-   error that follows the field moves the solution); then
+   and K3dg at P4's (``smooth_bias``): each kernel's mean error against
+   the f64 plain version within SMOOTH_BIAS times its f32 plain version's
+   (a rounding error that follows the field moves the solution); then
    every kernel against its plain torch version on the card at
    every shape the paths give it and at degrees 2-4 on small levels, to
    1e-5 max|ref| (K8, two chained f32 steps: 2e-5), with CUDA-event times
@@ -61,7 +61,8 @@ Phases; any failure exits non-zero:
    levels asked for pair steps launches no K8;
 3b. measurement (``measure_kernels``, MEASURE_CASES): K2 and K4-2D at P3's
    finest shape, K4-2D at m=255, K2 at the 3D shapes of P1, P2 and P4's
-   maps, each beside its library call: device time per launch from
+   maps, each beside its library call, and K3dg at P4's finest level and
+   K9d at P7's slab, which have none: device time per launch from
    ``torch.profiler``, time per call from CUDA events in turns (kernel,
    library, library, kernel), L2-warm and L2-cold; printed and kept in the
    kernels line (``device_ms``, ``cold_ms``, ``measured``), not a gate;
@@ -283,7 +284,9 @@ MIX_CASES = [
 ]
 # The measurement phase (``measure_kernels``): (LAUNCHES key, dim, q_in,
 # q_out, refinement).  K2 and K4-2D at P3's finest shape, K4-2D also at m=255
-# (launch latency), K2 at the 3D shapes of P1, P2 and P4's T^-1 / T maps.
+# (launch latency), K2 at the 3D shapes of P1, P2 and P4's T^-1 / T maps;
+# K3dg at P4's 255 level (six lanes) and K9d at P7's slab (one stage, the
+# first of two slabs: 128 planes of 255^2), which no PyTorch call computes.
 MEASURE_CASES = [
     ("stage_mix", 2, 4, 4, 10),
     ("stencil_apply_2d", 2, 4, 4, 10),
@@ -292,7 +295,13 @@ MEASURE_CASES = [
     ("stage_mix", 3, 5, 5, 7),
     ("stage_mix", 3, 5, 6, 8),
     ("stage_mix", 3, 6, 5, 8),
+    ("cheb_iter_dg", 3, 6, 6, 8),
+    ("cheb_iter_dg_halo", 3, 1, 1, 8),
 ]
+# the device kernels of a LAUNCHES key, by name in the profiler (default the
+# key itself): K3dg's and K9d's march, or the earlier tile kernel cheb_iter_kernel
+DEVICE_NAMES = {"cheb_iter_dg": ("cheb_dg_march", "cheb_iter_kernel"),
+                "cheb_iter_dg_halo": ("cheb_dg_march", "cheb_iter_kernel")}
 TURNS = 3  # each: kernel, library, library, kernel
 # smooth_bias: a kernel's mean error on P3's smooth block within this many
 # times its plain version's, plus this share of max|f64| (the f32 round-off
@@ -745,9 +754,10 @@ def _dev_us(e) -> float:
     return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
 
-def device_ms(fn, marker: str | None, reps: int = 20) -> tuple[float | None, float]:
-    """(device ms per call of the kernels whose name holds ``marker``, or of
-    every device op when ``marker`` is None; device ops per call) from
+def device_ms(fn, marker: tuple[str, ...] | None, reps: int = 20) -> tuple[float | None, float]:
+    """(device ms per launch of the kernels whose name holds one of
+    ``marker``, or per call of every device op when ``marker`` is None;
+    device ops per call) from
     ``torch.profiler`` over ``reps`` calls after a warm-up: the kernel
     alone, without the host's share of the call.  A session that records
     no device event at all is run again (at most three times: one such
@@ -765,9 +775,14 @@ def device_ms(fn, marker: str | None, reps: int = 20) -> tuple[float | None, flo
                if e.device_type != torch.autograd.DeviceType.CPU and _dev_us(e) > 0]
         if evs:
             break
-    sel = [e for e in evs if marker is None or marker in e.key]
+    sel = [e for e in evs if marker is None or any(mk in e.key for mk in marker)]
     ops = sum(e.count for e in evs) / reps
-    return (sum(_dev_us(e) for e in sel) / 1e3 / reps if sel else None), ops
+    if not sel:
+        return None, ops
+    # a kernel's time per launch over the launches the session saw (it may
+    # miss some: 16 of 20 once on the card); all device ops per call
+    per = sum(e.count for e in sel) if marker is not None else reps
+    return sum(_dev_us(e) for e in sel) / 1e3 / per, ops
 
 
 def _rotating(fn, sets: list):
@@ -784,89 +799,131 @@ def _rotating(fn, sets: list):
     return call
 
 
-def measure_kernels(device) -> list[dict]:
-    """The measurement phase (MEASURE_CASES): per case the kernel wrapper
-    and its library call (K2: the GEMM ``mat @ W``, which is also its plain
-    version; K4-2D: cuDNN's grouped ``conv2d``, f32 without TF32) on the
-    same inputs, in TURNS turns.  Each turn takes the time per call from
-    CUDA events over 20 back-to-back calls (``timed_calls``, host work
-    included, and the host's own time per call beside it) in the order
-    kernel, library, library, kernel, L2-warm (one
+def _measure_setup(key: str, dim: int, qi: int, qo: int, ref: int, device) -> dict:
+    """One MEASURE_CASES entry: the kernel call, its plain version and its
+    library call (None where no PyTorch call computes the function) on one
+    input set, a maker of input sets, the bytes of one set with its
+    outputs, the bound."""
+    from dealii_spirk_tpu_torch.fem.grid import make_level
+    from dealii_spirk_tpu_torch.ops.cuda import stencil as st
+    from dealii_spirk_tpu_torch.ops.mass_laplace import level_ops, slab_ops
+    from dealii_spirk_tpu_torch.parallel.sharding import z_partition
+
+    ops = level_ops(make_level(ref, 1), torch.float32, device)
+    m = ops.m
+    rng = np.random.default_rng(7 * ref + qi + 10 * qo)
+
+    def field(*shape):
+        return torch.as_tensor(rng.uniform(-1, 1, shape), dtype=torch.float32, device=device)
+
+    def vec(lo, hi):
+        return torch.as_tensor(rng.uniform(lo, hi, qi), dtype=torch.float32, device=device)
+
+    if key == "stage_mix":
+        mat = torch.as_tensor(rng.uniform(-1, 1, (qo, qi)), dtype=torch.float32, device=device)
+        return {
+            "kern": lambda W: st.stage_mix(mat, W),
+            "plain": lambda W: st.stage_mix_ref(mat, W),
+            "lib": lambda W: (mat @ W.reshape(qi, -1)).view((qo,) + W.shape[1:]),
+            "make": lambda: (field(qi, *(m,) * dim),),
+            "bytes": 4 * (qi + qo) * m**dim,
+            "at": f"{dim}D m={m} ({qo}x{qi})", "library": "GEMM mat @ W",
+            "bound": bound(key, qi, qo, m**dim, 1, dim),
+        }
+    a = vec(0.5, 2.0)
+    if key == "stencil_apply_2d":
+        return {
+            "kern": lambda u: st.stencil_apply(ops, a, 0.1, u),
+            "plain": lambda u: st.stencil_apply_ref(ops, a, 0.1, u),
+            "lib": shifted_conv(ops, qi, dim, a, 0.1),
+            "make": lambda: (field(qi, *(m,) * dim),),
+            "bytes": 4 * (qi + qo) * m**dim,
+            "at": f"{dim}D p=1 m={m} q={qi}", "library": "grouped conv2d",
+            "bound": bound(key, qi, qo, m**dim, 1, dim),
+        }
+    # K3dg, K9d: d, r, x in; r', d', x' out
+    c1, c2 = vec(0.2, 0.9), vec(0.1, 0.5)
+    if key == "cheb_iter_dg":
+        nz, halo, at = m, 0, f"3D p=1 m={m} q={qi}"
+        kern = lambda d, r, x: st.cheb_iter_dg(ops, a, 0.1, c1, c2, d, r, x)  # noqa: E731
+        plain = lambda d, r, x: st.cheb_iter_dg_ref(ops, a, 0.1, c1, c2, d, r, x)  # noqa: E731
+    else:
+        nz, halo = z_partition(m, 2)[0][1], 1
+        sops = slab_ops(ops, 0, nz)
+        at = f"3D p=1 m={m} q={qi} slab of {nz} planes"
+        kern = lambda d, r, x: st.cheb_iter_dg_halo(sops, a, 0.1, c1, c2, d, r, x)  # noqa: E731
+        plain = lambda d, r, x: st.cheb_iter_dg_halo_ref(sops, a, 0.1, c1, c2, d, r, x)  # noqa: E731
+    return {
+        "kern": kern, "plain": plain, "lib": None,
+        "make": lambda: (field(qi, nz + 2 * halo, m, m), field(qi, nz, m, m), field(qi, nz, m, m)),
+        "bytes": 4 * qi * (6 * nz + 2 * halo) * m * m,
+        "at": at, "library": "none",
+        "bound": bound(key, qi, qi, nz * m * m, 1, 3, halo_points=2 * halo * m * m),
+    }
+
+
+def measure_kernels(device, cases=None) -> list[dict]:
+    """The measurement phase (``cases``, default MEASURE_CASES): per case the
+    kernel wrapper and, where there is one, its library call (K2: the GEMM
+    ``mat @ W``, which is also its plain version; K4-2D: cuDNN's grouped
+    ``conv2d``, f32 without TF32; K3dg and K9d: none) on the same inputs, in
+    TURNS turns.  Each turn takes the time per call from CUDA events over
+    20 back-to-back calls (``timed_calls``, host work included, and the
+    host's own time per call beside it) in the order kernel, library,
+    library, kernel (kernel, kernel without a library call), L2-warm (one
     input set, as the kernels phase times) and L2-cold (rotating over input
     and output sets of twice the L2's size); then the device time per
     launch from ``torch.profiler`` (``device_ms``), warm and cold: the
-    kernel alone, and the library call's device ops summed.  The cold
-    times are the ones held against the HBM bound; a case's figures are the
-    least over the turns."""
-    from dealii_spirk_tpu_torch.fem.grid import make_level
-    from dealii_spirk_tpu_torch.ops.cuda import stencil as st
-    from dealii_spirk_tpu_torch.ops.mass_laplace import level_ops
-
+    kernel alone (DEVICE_NAMES), and the library call's device ops summed.
+    The cold times are the ones held against the HBM bound; a case's
+    figures are the least over the turns."""
     results = []
-    for key, dim, qi, qo, ref in MEASURE_CASES:
-        ops = level_ops(make_level(ref, 1), torch.float32, device)
-        m = ops.m
-        rng = np.random.default_rng(7 * ref + qi + 10 * qo)
-        set_bytes = 4 * (qi + qo) * m**dim
-        n_sets = max(2, -(-2 * L2_CACHE_BYTES // set_bytes))
-
-        def field(q):
-            return torch.as_tensor(rng.uniform(-1, 1, (q,) + (m,) * dim), dtype=torch.float32,
-                                   device=device)
-
-        if key == "stage_mix":
-            mat = torch.as_tensor(rng.uniform(-1, 1, (qo, qi)), dtype=torch.float32,
-                                  device=device)
-
-            def kern(W):
-                return st.stage_mix(mat, W)
-
-            def lib(W):
-                return (mat @ W.reshape(qi, -1)).view((qo,) + W.shape[1:])
-
-            at, library = f"{dim}D m={m} ({qo}x{qi})", "GEMM mat @ W"
-        else:
-            a = torch.as_tensor(rng.uniform(0.5, 2.0, qi), dtype=torch.float32, device=device)
-
-            def kern(u):
-                return st.stencil_apply(ops, a, 0.1, u)
-
-            lib = shifted_conv(ops, qi, dim, a, 0.1)
-            at, library = f"{dim}D p=1 m={m} q={qi}", "grouped conv2d"
-        sets = [(field(qi),) for _ in range(n_sets)]
-        warm = {"kernel": lambda: kern(*sets[0]), "library": lambda: lib(*sets[0])}
-        cold = {"kernel": _rotating(kern, sets), "library": _rotating(lib, sets)}
-        bnd = bound(key, qi, qo, m**dim, 1, dim)
+    for key, dim, qi, qo, ref in MEASURE_CASES if cases is None else cases:
+        c = _measure_setup(key, dim, qi, qo, ref, device)
+        kern, lib, at, library, bnd = c["kern"], c["lib"], c["at"], c["library"], c["bound"]
+        n_sets = max(2, -(-2 * L2_CACHE_BYTES // c["bytes"]))
+        sets = [c["make"]() for _ in range(n_sets)]
+        warm = {"kernel": lambda: kern(*sets[0])}
+        cold = {"kernel": _rotating(kern, sets)}
+        if lib is not None:
+            warm["library"], cold["library"] = (lambda: lib(*sets[0])), _rotating(lib, sets)
+        order = ("kernel", "library", "library", "kernel") if lib is not None else ("kernel",) * 2
+        marker = DEVICE_NAMES.get(key, (key,))
         fmt = lambda v: "not seen" if v is None else f"{v:.4f}"  # noqa: E731
         turns = []
         for t in range(TURNS):
             row = {}
             for mode, calls in (("warm", warm), ("cold", cold)):
-                k1, l1, l2, k2 = (timed_calls(calls[w]) for w in
-                                  ("kernel", "library", "library", "kernel"))
-                (kd, kops), (ld, lops) = (device_ms(calls["kernel"], key),
-                                          device_ms(calls["library"], None))
-                row[mode] = {"ms": (k1[0] + k2[0]) / 2, "library_ms": (l1[0] + l2[0]) / 2,
-                             "host_ms": (k1[1] + k2[1]) / 2,
-                             "library_host_ms": (l1[1] + l2[1]) / 2,
-                             "device_ms": kd, "device_ops_per_call": kops,
-                             "library_device_ms": ld, "library_device_ops_per_call": lops}
+                timed = [(w, timed_calls(calls[w])) for w in order]
+                kt = [t for w, t in timed if w == "kernel"]
+                kd, kops = device_ms(calls["kernel"], marker)
+                row[mode] = {"ms": sum(t[0] for t in kt) / 2, "host_ms": sum(t[1] for t in kt) / 2,
+                             "device_ms": kd, "device_ops_per_call": kops}
+                if lib is not None:
+                    lt = [t for w, t in timed if w == "library"]
+                    ld, lops = device_ms(calls["library"], None)
+                    row[mode] |= {"library_ms": sum(t[0] for t in lt) / 2,
+                                  "library_host_ms": sum(t[1] for t in lt) / 2,
+                                  "library_device_ms": ld, "library_device_ops_per_call": lops}
             w_, c_ = row["warm"], row["cold"]
-            row["held"] = (w_["ms"] <= w_["library_ms"]
-                           and None not in (w_["device_ms"], w_["library_device_ms"])
-                           and w_["device_ms"] <= w_["library_device_ms"])
+            line = (f"measure {key} {at} turn {t + 1} (kernel / {library}, ms): per call warm "
+                    f"{w_['ms']:.4f}, cold {c_['ms']:.4f}; device per launch warm "
+                    f"{fmt(w_['device_ms'])}, cold {fmt(c_['device_ms'])}; host per call warm "
+                    f"{w_['host_ms']:.4f}; device ops per call {w_['device_ops_per_call']:g}")
+            if lib is not None:
+                row["held"] = (w_["ms"] <= w_["library_ms"]
+                               and None not in (w_["device_ms"], w_["library_device_ms"])
+                               and w_["device_ms"] <= w_["library_device_ms"])
+                line += (f"; library per call warm {w_['library_ms']:.4f}, cold "
+                         f"{c_['library_ms']:.4f}, device warm {fmt(w_['library_device_ms'])}, "
+                         f"cold {fmt(c_['library_device_ms'])}, host {w_['library_host_ms']:.4f},"
+                         f" device ops {w_['library_device_ops_per_call']:g}; kernel at or below"
+                         f" the library warm, per call and on the device: {row['held']}")
             turns.append(row)
-            say(f"measure {key} {at} turn {t + 1} (kernel / {library}, ms): per call warm "
-                f"{w_['ms']:.4f} / {w_['library_ms']:.4f}, cold {c_['ms']:.4f} / "
-                f"{c_['library_ms']:.4f}; device per launch warm {fmt(w_['device_ms'])} / "
-                f"{fmt(w_['library_device_ms'])}, cold {fmt(c_['device_ms'])} / "
-                f"{fmt(c_['library_device_ms'])}; host per call warm {w_['host_ms']:.4f} / "
-                f"{w_['library_host_ms']:.4f}; device ops per call {w_['device_ops_per_call']:g}"
-                f" / {w_['library_device_ops_per_call']:g}; kernel at or below the library "
-                f"warm, per call and on the device: {row['held']}")
+            say(line)
 
         def least(mode, k):
-            vals = [r[mode][k] for r in turns if r[mode][k] is not None]
+            vals = [r[mode][k] for r in turns if r[mode].get(k) is not None]
             return min(vals) if vals else None
 
         res = {
@@ -878,7 +935,7 @@ def measure_kernels(device) -> list[dict]:
             "library_cold_ms": least("cold", "library_ms"),
             "library_device_ms": least("warm", "library_device_ms"),
             "library_cold_device_ms": least("cold", "library_device_ms"),
-            "held_every_turn": all(r["held"] for r in turns),
+            "held_every_turn": all(r["held"] for r in turns) if lib is not None else None,
             "turns": turns,
         }
         say(f"measure {key} {at}: bound {bnd[0]:.4f} ms ({bnd[1]}); L2-cold per call "
@@ -886,22 +943,17 @@ def measure_kernels(device) -> list[dict]:
             f"{fmt(res['cold_device_ms'])} ms"
             + ("" if res["cold_device_ms"] is None
                else f" (bound / time {bnd[0] / res['cold_device_ms']:.3f})")
-            + f"; at or below the library in every turn: {res['held_every_turn']}")
+            + ("" if lib is None else
+               f"; at or below the library in every turn: {res['held_every_turn']}"))
         results.append(res)
-        del sets, warm, cold
+        del sets, warm, cold, c
         torch.cuda.empty_cache()
     return results
 
 
-def smooth_bias(device) -> list[dict]:
-    """The 2D kernels of P3's vmult and V-cycle at its finest level on a
-    smooth stage block (u_i = (1 + i / 10) sin(pi x) sin(2 pi y) + 0.3):
-    the mean and the largest error of each f32 kernel and of its f32 plain
-    version against the plain version in f64 on the same inputs, relative
-    to max|f64|.  Random fields (the kernels phase) cannot show it: for a
-    smooth field K u is a 1e-5 share of its terms at m = 1023, and a
-    rounding error that follows the field passes the outer GMRES into the
-    solution."""
+def smooth_cases_2d(device):
+    """P3's 2D kernels at its finest level on u_i = (1 + i / 10) sin(pi x)
+    sin(2 pi y) + 0.3: (name, where, kernel, f32 plain, f64 plain)."""
     from dealii_spirk_tpu_torch.fem.grid import make_level
     from dealii_spirk_tpu_torch.ops.cuda import stencil as st
     from dealii_spirk_tpu_torch.ops.mass_laplace import level_ops
@@ -917,34 +969,104 @@ def smooth_bias(device) -> list[dict]:
     u64 = u32.double()
     a = torch.linspace(1.5, 4.5, q, dtype=torch.float64, device=device)
     ainv = torch.as_tensor(irk_tables(q).A_inv, dtype=torch.float64, device=device)
-    cases = {
-        "mass_stiffness_apply_2d": (lambda: st.mass_stiffness_apply(o32, u32)[1],
-                                    lambda: st.mass_stiffness_apply_ref(o32, u32)[1],
-                                    lambda: st.mass_stiffness_apply_ref(o64, u64)[1]),
-        "stencil_apply_2d": (lambda: st.stencil_apply(o32, a.float(), 0.1, u32),
-                             lambda: st.stencil_apply_ref(o32, a.float(), 0.1, u32),
-                             lambda: st.stencil_apply_ref(o64, a, 0.1, u64)),
-        "stage_mix": (lambda: st.stage_mix(ainv.float(), u32),
-                      lambda: st.stage_mix_ref(ainv.float(), u32),
-                      lambda: st.stage_mix_ref(ainv, u64)),
-    }
+    at = f"2D m={m} q={q}, smooth"
+    yield ("mass_stiffness_apply_2d", at, lambda: st.mass_stiffness_apply(o32, u32)[1],
+           lambda: st.mass_stiffness_apply_ref(o32, u32)[1],
+           lambda: st.mass_stiffness_apply_ref(o64, u64)[1])
+    yield ("stencil_apply_2d", at, lambda: st.stencil_apply(o32, a.float(), 0.1, u32),
+           lambda: st.stencil_apply_ref(o32, a.float(), 0.1, u32),
+           lambda: st.stencil_apply_ref(o64, a, 0.1, u64))
+    yield ("stage_mix", at, lambda: st.stage_mix(ainv.float(), u32),
+           lambda: st.stage_mix_ref(ainv.float(), u32), lambda: st.stage_mix_ref(ainv, u64))
+
+
+def smooth_cases_3d(device):
+    """K3dg at P4's finest level (m = 255, its six V-cycle lanes): d_i =
+    (1 + i / 10) sin(pi x) sin(2 pi y) sin(pi z) + 0.3, x_i = (1 + i / 10)
+    sin(2 pi x) sin(pi y) sin(3 pi z), and r_i = s x_i with s = max|(a_i M +
+    b K) d_i|, so that r' = r - (a_i M + b K) d_i is of the apply's size
+    (a smoother's residual) and its rounding stays in sight; each output r',
+    d', x' as a case of its own."""
+    from dealii_spirk_tpu_torch.fem.grid import make_level
+    from dealii_spirk_tpu_torch.ops.cuda import stencil as st
+    from dealii_spirk_tpu_torch.ops.mass_laplace import level_ops
+
+    _dim, cfg, _L = PATHS["P4"]
+    q, b, level = 2 * ((cfg["IRKStages"] + 1) // 2), 0.1, make_level(cfg["NRefinements"], 1)
+    o32, o64 = (level_ops(level, dt, device) for dt in (torch.float32, torch.float64))
+    m = o32.m
+    z = torch.arange(1, m + 1, dtype=torch.float64, device=device) / (m + 1)
+    sin = lambda k: torch.sin(k * np.pi * z)  # noqa: E731
+    mode_d = sin(1)[:, None, None] * sin(2)[None, :, None] * sin(1)[None, None, :]
+    mode_x = sin(3)[:, None, None] * sin(1)[None, :, None] * sin(2)[None, None, :]
+    lanes = [1 + i / 10 for i in range(q)]
+    a, c1, c2 = (torch.linspace(lo, hi, q, dtype=torch.float64, device=device)
+                 for lo, hi in ((1.5, 4.5), (0.3, 0.8), (0.1, 0.4)))
+    d = torch.stack([w * mode_d + 0.3 for w in lanes]).float()
+    del mode_d
+    scale = float(st.stencil_apply_ref(o64, a, b, d.double()).abs().max())
+    x = torch.stack([w * mode_x for w in lanes]).float()
+    r = (scale * x.double()).float()
+    del mode_x
+    f32 = [t.float() for t in (a, c1, c2)]
+    outs = {}
+
+    def output(arm: str, k: int):
+        if arm not in outs:
+            outs.clear()  # one arm's three outputs at a time (f64: 2.4 GB)
+            if arm == "kernel":
+                outs[arm] = st.cheb_iter_dg(o32, f32[0], b, f32[1], f32[2], d, r, x)
+            elif arm == "plain":
+                outs[arm] = st.cheb_iter_dg_ref(o32, f32[0], b, f32[1], f32[2], d, r, x)
+            else:
+                outs[arm] = st.cheb_iter_dg_ref(o64, a, b, c1, c2, d.double(), r.double(),
+                                                x.double())
+        return outs[arm][k]
+
+    at = f"3D m={m} q={q}, smooth"
+    for k, out in enumerate(("r'", "d'", "x'")):
+        yield (f"cheb_iter_dg {out}", at, lambda k=k: output("kernel", k),
+               lambda k=k: output("plain", k), lambda k=k: output("exact", k))
+
+
+def smooth_bias(device) -> list[dict]:
+    """Kernels on a smooth field: P3's 2D kernels of its vmult and V-cycle
+    at its finest level (``smooth_cases_2d``) and K3dg at P4's 255 level
+    (``smooth_cases_3d``): the mean and the largest error of each f32 kernel and
+    of its f32 plain version against the plain version in f64 on the same
+    inputs, relative to max|f64|.  Random fields (the kernels phase) cannot
+    show it: for a smooth field K u is a 1e-5 share of its terms at m =
+    1023, and a rounding error that follows the field passes the outer
+    GMRES into the solution."""
     out = []
-    for name, (kern, plain, exact) in cases.items():
-        want = exact()
+    for cases in (smooth_cases_2d(device), smooth_cases_3d(device)):
+        for row in smooth_rows(cases):
+            if abs(row["kernel_mean"]) > row["limit"]:
+                raise AssertionError(f"{row['name']}: a rounding error that follows the field")
+            out.append(row)
+        torch.cuda.empty_cache()
+    return out
+
+
+def smooth_rows(cases):
+    """Per case of ``smooth_cases_2d`` / ``smooth_cases_3d``: the kernel's and the f32
+    plain version's mean and largest error against f64, of max|f64|, and the
+    limit on the kernel's |mean| (SMOOTH_BIAS, SMOOTH_FLOOR); printed."""
+    for name, at, kern, plain, exact in cases:
+        want = exact().double()
         scale = float(want.abs().max())
-        row = {"name": name, "at": f"2D m={m} q={q}, smooth"}
+        row = {"name": name, "at": at}
         for arm, fn in (("kernel", kern), ("plain", plain)):
             err = fn().double() - want
             row[arm + "_mean"] = float(err.mean()) / scale
             row[arm + "_max"] = float(err.abs().max()) / scale
-        limit = SMOOTH_BIAS * abs(row["plain_mean"]) + SMOOTH_FLOOR
-        say(f"smooth field {name:24s} {row['at']}: mean / max error against f64, of max|f64|:"
+            del err
+        del want
+        row["limit"] = SMOOTH_BIAS * abs(row["plain_mean"]) + SMOOTH_FLOOR
+        say(f"smooth field {name:24s} {at}: mean / max error against f64, of max|f64|:"
             f" kernel {row['kernel_mean']:+.3e} / {row['kernel_max']:.3e}, plain f32 "
-            f"{row['plain_mean']:+.3e} / {row['plain_max']:.3e}; |mean| limit {limit:.3e}")
-        if abs(row["kernel_mean"]) > limit:
-            raise AssertionError(f"{name}: a rounding error that follows the field")
-        out.append(row)
-    return out
+            f"{row['plain_mean']:+.3e} / {row['plain_max']:.3e}; |mean| limit {row['limit']:.3e}")
+        yield row
 
 
 def run_path(device, name: str, kernels: bool, **over):

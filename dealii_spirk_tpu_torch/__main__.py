@@ -1,5 +1,5 @@
 """CLI: ``python -m dealii_spirk_tpu_torch [--dim {2,3}] [--device DEV]
-[--slots N] cfg1.json [cfg2.json ...]``
+[--slots N] [--no-phase-timers] [--profile DIR] cfg1.json [cfg2.json ...]``
 
 Port of ``dealii_spirk_tpu/__main__.py`` (the reference's ``irk-2D`` /
 ``irk-3D`` executables, ``main.cc:3608-3791``): each JSON config runs in
@@ -10,6 +10,7 @@ config.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 
 from .config import Parameters
@@ -29,8 +30,40 @@ def build_parser() -> argparse.ArgumentParser:
         help="slots of the (stage, space) mesh of a stage-parallel scheme, all on the "
         "device (default: the stage axis size, a (stage, 1) mesh)",
     )
+    parser.add_argument(
+        "--phase-timers", action=argparse.BooleanOptionalAction, default=True,
+        help="time the system vmult and the preconditioner's basis changes and block "
+        "solves in place, for the t_vmult / t_prec_* columns (the reference's in-loop "
+        "phase timers, main.cc:998-1173); on by default",
+    )
+    parser.add_argument(
+        "--profile", metavar="DIR", default=None,
+        help="record a torch.profiler trace of the run (host and device) into "
+        "DIR/trace.json",
+    )
     parser.add_argument("configs", nargs="+", help="JSON parameter files")
     return parser
+
+
+@contextlib.contextmanager
+def profiled(out_dir: str | None, device: str):
+    """``torch.profiler`` over the block, its Chrome trace written to
+    ``out_dir/trace.json``; nothing when ``out_dir`` is None."""
+    if out_dir is None:
+        yield
+        return
+    from pathlib import Path
+
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        yield
+    path = Path(out_dir)
+    path.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path / "trace.json"))
 
 
 def main(argv=None) -> int:
@@ -42,11 +75,13 @@ def main(argv=None) -> int:
         parser.error(str(err))
 
     table = ConvergenceTable()
-    for path in args.configs:
-        params = Parameters.from_json(path, dim=args.dim)
-        run_config(params, table, device=args.device, slots=args.slots)
-        print()
-        print(table.to_string())
+    with profiled(args.profile, args.device):
+        for path in args.configs:
+            params = Parameters.from_json(path, dim=args.dim)
+            run_config(params, table, device=args.device, slots=args.slots,
+                       phase_timers=args.phase_timers)
+            print()
+            print(table.to_string())
     return 0
 
 

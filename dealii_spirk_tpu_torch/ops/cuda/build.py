@@ -40,15 +40,17 @@ SIGNATURES = {
     "spirk_mass_stiffness_apply_2d": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # d, r, x, invd, r_out, d_out, x_out, mband, kband, w, q, m, p, stream
     "spirk_cheb_iter": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # d, r, x, mdiag, kdiag, r_out, d_out, x_out, mband, kband, w, q, m, p, stream
-    "spirk_cheb_iter_dg": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # the pair step, K8: the same arguments, w (q, 6)
+    # d, r, x, mdiag, kdiag, r_out, d_out, x_out, mband, kband, a (q,), b, c1 (q,),
+    # c2 (q,), q, m, chunk, p, stream
+    "spirk_cheb_iter_dg": (_P,) * 11 + (_F, _P, _P) + (_I,) * 4 + (_P,),
+    # K8: d, r, x, mdiag, kdiag, r_out, d_out, x_out, mband, kband, w (q, 6), q, m, p, stream
     "spirk_cheb_pair_dg": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # the z-slab forms: ..., q, m, nzl, z_off, p, stream
     "spirk_stencil_apply_halo": (_P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P),
     "spirk_mass_stiffness_apply_halo": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "spirk_cheb_iter_halo": (_P,) * 10 + (_I,) * 5 + (_P,),
-    "spirk_cheb_iter_dg_halo": (_P,) * 11 + (_I,) * 5 + (_P,),
+    # ..., c2, q, m, nzl, z_off, chunk, p, stream
+    "spirk_cheb_iter_dg_halo": (_P,) * 11 + (_F, _P, _P) + (_I,) * 6 + (_P,),
     # u, out, mband, kband, mw, q, m, p, stream
     "spirk_ms_mix_apply": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # W, out, mat, q_out, q_in, n, stream

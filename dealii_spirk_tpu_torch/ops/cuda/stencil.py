@@ -31,7 +31,9 @@ block counts under ``<key>_2d``), with the Pallas kernels they replace
 * K3 ``cheb_iter`` — ``fused_cheb_iter_canon``: one 3D Chebyshev step;
 * K3dg ``cheb_iter_dg`` — ``fused_cheb_iter_canon`` with ``diag_tables``
   (``_fused_cheb_canon_dg``): K3 with the Jacobi diagonal rebuilt per
-  point from the level's 1D diagonals, so no D^-1 field is read;
+  point from the level's 1D diagonals, so no D^-1 field is read; a block
+  marches over a chunk of z planes of its (y, x) tile (``march_plan``
+  picks the chunk per launch);
 * K8 ``cheb_pair_dg`` — ``fused_cheb_pair_canon``: two K3dg steps in one
   pass (stage 1 on the tile grown by p, stage 2 on the tile), 6 field
   passes for two steps; the unsharded V-cycle takes it only when asked
@@ -64,6 +66,13 @@ from ..mass_laplace import (
 )
 
 QMAX = 8  # most stages the stage-coupled kernels hold (csrc/common.cuh)
+# K3dg / K9d's z march (csrc/cheb_iter.cu): the (y, x) output tile of a
+# block, the most planes one block marches (csrc MZC; at P4's shape chunks
+# of 16 planes ran faster than chunks of 32 or 64 on the H100, PERF.md), and
+# the blocks a launch should have at least: two per SM of the H100 (132 SMs)
+MARCH_TILE = (16, 64)
+MARCH_MAX_CHUNK = 16
+MARCH_MIN_BLOCKS = 2 * 132
 
 # one count per CUDA entry point (csrc/, build.SIGNATURES without "spirk_")
 LAUNCHES = {
@@ -257,6 +266,44 @@ def _stage_coefs(a, q: int, device) -> torch.Tensor:
     return a.to(device=device, dtype=torch.float32).contiguous()
 
 
+def march_plan(q: int, nz: int, m: int) -> tuple[int, tuple[int, int, int]]:
+    """(chunk, grid) of a K3dg / K9d launch over ``nz`` output planes of
+    ``q`` stages of m x m: the most planes a block marches, a power of two
+    up to MARCH_MAX_CHUNK, the largest that leaves MARCH_MIN_BLOCKS blocks
+    (1 where even that does not), and the launch grid the kernel takes
+    from it (x tiles, y tiles, q * chunks; ``march_planes``)."""
+    ty, tx = MARCH_TILE
+    tiles = -(-m // tx), -(-m // ty)
+    chunk = MARCH_MAX_CHUNK
+    while chunk > 1 and tiles[0] * tiles[1] * q * -(-nz // chunk) < MARCH_MIN_BLOCKS:
+        chunk //= 2
+    return chunk, (tiles[0], tiles[1], q * -(-nz // chunk))
+
+
+def march_planes(nz: int, chunk: int, bz: int) -> tuple[int, int, int]:
+    """(stage, first plane, end plane) of the blocks at ``blockIdx.z = bz``,
+    as ``cheb_dg_march`` reads it."""
+    nch = -(-nz // chunk)
+    z0 = (bz % nch) * chunk
+    return bz // nch, z0, min(z0 + chunk, nz)
+
+
+def _cheb_dg_launch(name: str, ops: LevelOps, a, b, c1, c2, d, r, x, q: int, nz: int,
+                    *slab) -> tuple:
+    """Launch K3dg or K9d (``name``) over ``nz`` planes; ``slab``: (nzl,
+    z_off) for K9d.  The coefficients go as (q,) tables (no device op where
+    they are f32 (q,) tensors already) and ``b`` by value."""
+    r_out, d_out, x_out = (torch.empty_like(r) for _ in range(3))
+    device = d.device
+    a, c1, c2 = (_stage_coefs(c, q, device) for c in (a, c1, c2))
+    chunk, _grid = march_plan(q, nz, ops.m)
+    _launch_raw(name, device, *(t.data_ptr() for t in (
+        d, r, x, ops.mass_diag, ops.stiff_diag, r_out, d_out, x_out, ops.mass_band,
+        ops.stiff_band, a)), float(b), c1.data_ptr(), c2.data_ptr(), q, ops.m, *slab, chunk,
+        ops.p)
+    return r_out, d_out, x_out
+
+
 def _launch(name: str, *args) -> None:
     """Launch entry point ``name`` on the first tensor's device (the slots of
     a mesh may lie on several), each tensor passed as its data pointer."""
@@ -344,19 +391,14 @@ def cheb_iter_dg(ops: LevelOps, a, b, c1, c2, d, r, x):
         return cheb_iter_dg_ref(ops, a, b, c1, c2, d, r, x)
     if d.ndim != 4:
         raise ValueError("cheb_iter_dg takes 3D stage blocks (q, m, m, m)")
-    q, m, p = _check_block(ops, d, "d")
+    q, m, _ = _check_block(ops, d, "d")
     for t, name in ((r, "r"), (x, "x")):
         _check_field(t, d.shape, name)
     for t in (ops.mass_diag, ops.stiff_diag):
         _check_field(t, (m,), "1D diagonal")
-    r_out, d_out, x_out = (torch.empty_like(d) for _ in range(3))
-    w = _coefs(q, d.device, a, b, c1, c2)
-    _launch(
-        "spirk_cheb_iter_dg", d, r, x, ops.mass_diag, ops.stiff_diag, r_out, d_out, x_out,
-        ops.mass_band, ops.stiff_band, w, q, m, p,
-    )
+    out = _cheb_dg_launch("spirk_cheb_iter_dg", ops, a, b, c1, c2, d, r, x, q, m)
     LAUNCHES["cheb_iter_dg"] += 1
-    return r_out, d_out, x_out
+    return out
 
 
 def cheb_pair_dg(ops: LevelOps, a, b, c1a, c2a, c1b, c2b, d, r, x):
@@ -448,19 +490,15 @@ def cheb_iter_dg_halo(ops: LevelOps, a, b, c1, c2, d_h, r, x):
     1D diagonals at the slab's global rows (no D^-1 field)."""
     if _on_cpu(d_h, r, x, ops.mass_band):
         return cheb_iter_dg_halo_ref(ops, a, b, c1, c2, d_h, r, x)
-    q, m, p, nzl = _check_slab(ops, d_h, "d_h")
+    q, m, _, nzl = _check_slab(ops, d_h, "d_h")
     for t, name in ((r, "r"), (x, "x")):
         _check_field(t, (q, nzl, m, m), name)
     for t in (ops.mass_diag, ops.stiff_diag):
         _check_field(t, (m,), "1D diagonal")
-    r_out, d_out, x_out = (torch.empty_like(r) for _ in range(3))
-    w = _coefs(q, d_h.device, a, b, c1, c2)
-    _launch(
-        "spirk_cheb_iter_dg_halo", d_h, r, x, ops.mass_diag, ops.stiff_diag,
-        r_out, d_out, x_out, ops.mass_band, ops.stiff_band, w, q, m, nzl, ops.z_off, p,
-    )
+    out = _cheb_dg_launch("spirk_cheb_iter_dg_halo", ops, a, b, c1, c2, d_h, r, x, q, nzl,
+                          nzl, ops.z_off)
     LAUNCHES["cheb_iter_dg_halo"] += 1
-    return r_out, d_out, x_out
+    return out
 
 
 def ms_mix_apply(ops: LevelOps, Ainv: torch.Tensor, tau, u: torch.Tensor) -> torch.Tensor:

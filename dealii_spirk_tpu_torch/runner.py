@@ -24,6 +24,7 @@ def run_config(
     mesh=None,
     slots: int | None = None,
     verbose: bool = True,
+    phase_timers: bool = False,
     **scheme_options,
 ) -> dict:
     """Run one configuration on ``device`` (the GPU unless asked for
@@ -31,7 +32,10 @@ def run_config(
     dict and fills ``table``.  A stage-parallel scheme runs on ``mesh``, or
     on the mesh that ``make_mesh`` builds from ``slots`` slots on
     ``device`` (default: the stage axis size, a (stage, 1) mesh) and the
-    configuration's MaxRanks, DoRowMajor and Padding.  ``scheme_options``
+    configuration's MaxRanks, DoRowMajor and Padding.  ``phase_timers``:
+    fill t_vmult, t_prec_bc and t_prec_solver by timing those phases in
+    place (``PhaseTimers(inner=True)``; off, as the JAX package's
+    ``profile_phases``, they read "-").  ``scheme_options``
     go to the scheme's constructor (``kernels``, ``tables``, ``start``,
     ``cheb_pair``: K8 on the unsharded V-cycles, default from
     ``SPIRK_CHEB_PAIR``)."""
@@ -52,7 +56,8 @@ def run_config(
             do_row_major=params.do_row_major,
             padding=params.padding,
         )
-    scheme = make_scheme(problem, params, mesh=mesh, **scheme_options)
+    scheme = make_scheme(problem, params, mesh=mesh, phase_timers=phase_timers,
+                         **scheme_options)
     mesh = getattr(scheme, "mesh", None)  # the scheme may narrow the mesh
     if params.do_output_paraview:
         say("NOTE: paraview output is not ported yet; DoOutputParaview ignored")

@@ -32,7 +32,11 @@ GMRES_RESTART = 28  # deal.II's default basis (30 temporary vectors)
 
 
 class SchemeBase:
-    def __init__(self, problem: HeatProblem, params: Parameters):
+    def __init__(self, problem: HeatProblem, params: Parameters, *,
+                 phase_timers: bool = False):
+        """``phase_timers``: also time the system vmult and the
+        preconditioner's basis changes and block solves in place
+        (``PhaseTimers(inner=True)``); off, their columns read "-"."""
         if params.block_preconditioner_type == "AMG":
             raise NotImplementedError(
                 "BlockPreconditionerType AMG is not ported yet (ROADMAP "
@@ -45,7 +49,7 @@ class SchemeBase:
         self.device = problem.device
         self.gmg = build_gmg_data(problem.space, dtype=self.dtype, device=self.device)
         self.fine = self.gmg.level_ops[-1]
-        self.timers = PhaseTimers(self.device)
+        self.timers = PhaseTimers(self.device, inner=phase_timers)
         self.n_outer = 0.0
         self.n_inner = 0.0
         # per-stage inner counts for per-stage time attribution (reference
@@ -88,8 +92,8 @@ class SchemeBase:
             for suffix in ("min", "avg", "max"):
                 table.add_value(f"{col}_{suffix}", round(val, 2))
         t = self.timers.seconds
-        # a phase never timed (the replayed t_vmult / t_prec_* pieces are
-        # not ported) reads None, printed "-", never 0
+        # a phase never timed (t_vmult / t_prec_* without phase timers)
+        # reads None, printed "-", never 0
         for col, key in (
             ("t", "total"),
             ("t_rhs", "rhs"),
@@ -141,6 +145,7 @@ class RadauScheme(SchemeBase):
         tables: IRKTables | None = None,
         start=None,
         cheb_pair: bool | None = None,
+        phase_timers: bool = False,
     ):
         """``kernels``: run the hand-written kernels (default: when the
         configuration's operator mode on this device is "pallas").
@@ -148,8 +153,9 @@ class RadauScheme(SchemeBase):
         ``start``: Lanczos start vectors for ``gmg_reinit``.
         ``cheb_pair``: let the unsharded kernel V-cycles take two Chebyshev
         steps per K8 launch (``gmg.vcycle``; default ``config.CHEB_PAIR``,
-        off unless ``SPIRK_CHEB_PAIR=1``)."""
-        super().__init__(problem, params)
+        off unless ``SPIRK_CHEB_PAIR=1``).
+        ``phase_timers``: see ``SchemeBase``."""
+        super().__init__(problem, params, phase_timers=phase_timers)
         mode = params.operator_mode(self.device)
         if mode == "dense":
             raise NotImplementedError(

@@ -203,23 +203,25 @@ class ComplexIRK(RadauScheme):
         and the solution gathered before the back map (JAX
         complex_irk.py:230-265)."""
         mix = st.stage_mix if self.kernels else st.stage_mix_ref
-        Z = pair_view(mix(self.T_inv_pairs, W_rhs))
-        if self.mesh is not None:
-            Z = scatter_pairs(Z, self.mesh)
+        phase = self.timers.phase
+        with phase("preconditioner_bc"):
+            Z = pair_view(mix(self.T_inv_pairs, W_rhs))
+            if self.mesh is not None:
+                Z = scatter_pairs(Z, self.mesh)
 
-        if self.batched:
-
-            def Mop(v, carry):
+        def Mop(v, carry):
+            with phase("preconditioner_solver"):
+                if not self.batched:
+                    return self._presb(v, carry, prec, tau)
                 out = self._vcycle(prec, self.shifts_lanes, tau, lane_view(v))
                 return pair_view(out), carry + 1
 
-        else:
-
-            def Mop(v, carry):
-                return self._presb(v, carry, prec, tau)
+        def Aop(v):
+            with phase("system_vmult"):
+                return self.pair_vmult(v, tau)
 
         res = gmres(
-            lambda v: self.pair_vmult(v, tau),
+            Aop,
             Z,
             M=Mop,
             M_carry=np.zeros((self.n_pairs, 2), dtype=np.int64),
@@ -229,10 +231,11 @@ class ComplexIRK(RadauScheme):
             restart=self.restart,
             batch=True,
         )
-        x = lane_view(res.x)
-        if self.mesh is not None:
-            x = gather(x, self.device)
-        return mix(self.T_pairs, x), res
+        with phase("preconditioner_bc"):
+            x = lane_view(res.x)
+            if self.mesh is not None:
+                x = gather(x, self.device)
+            return mix(self.T_pairs, x), res
 
     def solve_step(self, u, timestep_number, t, tau):
         prec = self.prec_state(tau)

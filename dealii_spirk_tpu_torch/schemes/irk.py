@@ -113,10 +113,12 @@ class IRK(RadauScheme):
         """``solve_fn`` on the mesh (JAX schemes/irk.py:183-327 with a
         mesh)."""
         k, q, mesh, level = self.kernels, self.q, self.mesh, self.fine_level
+        phase = self.timers.phase
 
         def Aop(W):  # K9b (2D: K5-2D per stage row), the mesh mix, + tau K W
-            MW, KW = shk.sharded_mass_stiffness_apply(level, W, kernels=k)
-            return self.mix("A_inv", MW) + tau * KW
+            with phase("system_vmult"):
+                MW, KW = shk.sharded_mass_stiffness_apply(level, W, kernels=k)
+                return self.mix("A_inv", MW) + tau * KW
 
         def shifted(W):  # the inner CG's operator: K9a (2D: K4-2D)
             return shk.sharded_stencil_apply(level, self.d_vec, tau, W, kernels=k)
@@ -127,16 +129,19 @@ class IRK(RadauScheme):
         inner_tol = self.params.inner_tolerance
 
         def Mop(v, carry):
-            z = self.mix("T_inv", v)
-            if inner_tol > 0.0:
-                res = pcg(shifted, z, M=V, maxiter=100, abstol=1e-10, reltol=inner_tol,
-                          batch=True)
-                z = res.x
-                carry = carry + res.n_iterations.cpu().numpy()
-            else:
-                z = V(z)
-                carry = carry + 1
-            return self.mix("T", z), carry
+            with phase("preconditioner_bc"):
+                z = self.mix("T_inv", v)
+            with phase("preconditioner_solver"):
+                if inner_tol > 0.0:
+                    res = pcg(shifted, z, M=V, maxiter=100, abstol=1e-10, reltol=inner_tol,
+                              batch=True)
+                    z = res.x
+                    carry = carry + res.n_iterations.cpu().numpy()
+                else:
+                    z = V(z)
+                    carry = carry + 1
+            with phase("preconditioner_bc"):
+                return self.mix("T", z), carry
 
         res = gmres(
             Aop,
@@ -182,35 +187,35 @@ class IRK(RadauScheme):
         k, fine, dim, q = self.kernels, self.fine, self.dim, self.q
         mix = st.stage_mix if k else st.stage_mix_ref
         ms = st.mass_stiffness_apply if k else st.mass_stiffness_apply_ref
+        phase = self.timers.phase
 
-        if k and dim == 3 and not self.sequential:
-
-            def Aop(W):  # K1
-                return st.ms_mix_apply(fine, self.A_inv, tau, W)
-
-        else:
-
-            def Aop(W):  # K5, K2, + tau K W
-                MW, KW = ms(fine, W)
+        def Aop(W):
+            with phase("system_vmult"):
+                if k and dim == 3 and not self.sequential:  # K1
+                    return st.ms_mix_apply(fine, self.A_inv, tau, W)
+                MW, KW = ms(fine, W)  # K5, K2, + tau K W
                 return mix(self.A_inv, MW) + tau * KW
 
         stage_precs = [stage_prec(prec, i) for i in range(q)] if self.sequential else None
 
         def Mop(v, carry):
-            z = mix(self.T_inv, v)
-            if self.sequential:
-                carry = carry.copy()
-                outs = []
-                for i in range(q):
-                    zi, n = self._stage_solve(stage_precs[i], i, z[i : i + 1], tau)
-                    outs.append(zi)
-                    carry[i] += n
-                z = torch.cat(outs)
-            else:
-                z = vcycle(self.gmg, prec, self.d_vec, tau, z, dim, kernels=k,
-                           cheb_pair=self.cheb_pair)
-                carry = carry + 1
-            return mix(self.T, z), carry
+            with phase("preconditioner_bc"):
+                z = mix(self.T_inv, v)
+            with phase("preconditioner_solver"):
+                if self.sequential:
+                    carry = carry.copy()
+                    outs = []
+                    for i in range(q):
+                        zi, n = self._stage_solve(stage_precs[i], i, z[i : i + 1], tau)
+                        outs.append(zi)
+                        carry[i] += n
+                    z = torch.cat(outs)
+                else:
+                    z = vcycle(self.gmg, prec, self.d_vec, tau, z, dim, kernels=k,
+                               cheb_pair=self.cheb_pair)
+                    carry = carry + 1
+            with phase("preconditioner_bc"):
+                return mix(self.T, z), carry
 
         res = gmres(
             Aop,

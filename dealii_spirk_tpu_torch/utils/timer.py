@@ -6,6 +6,13 @@ after the first timestep so preconditioner setup is excluded,
 ``main.cc:971-973``).  On a CUDA device a phase is a pair of CUDA events
 on the current stream, read (with a synchronise) only when the durations
 are asked for; on the CPU it is the host clock.
+
+The phases inside the outer solve (``INNER``: the system vmult, the
+preconditioner's basis changes and its block solves) are timed in place,
+around each call, as the reference does in its loops (``main.cc:998-1173``),
+when the timers are made with ``inner=True``; otherwise their spans are
+not recorded and read None.  Recording an event does not wait for the
+device, so a span adds no host synchronisation to a step.
 """
 
 from __future__ import annotations
@@ -26,14 +33,18 @@ class PhaseTimers:
         "preconditioner_bc",
         "preconditioner_solver",
     )
+    INNER = ("system_vmult", "preconditioner_bc", "preconditioner_solver")
 
-    def __init__(self, device="cpu") -> None:
+    def __init__(self, device="cpu", inner: bool = False) -> None:
         self.cuda = torch.device(device).type == "cuda"
+        self.inner = inner
         self._spans: dict[str, list] = {p: [] for p in self.PHASES}
 
     @contextmanager
     def phase(self, name: str):
-        if self.cuda:
+        if name in self.INNER and not self.inner:
+            yield
+        elif self.cuda:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()

@@ -212,9 +212,10 @@ def _k_u(order: str):
 
 @pytest.fixture(scope="module")
 def smooth_rows():
-    """``chip_smoke.smooth_bias`` on the CPU, where every wrapper runs its
-    plain version: the probe's own limits, from the plain versions."""
-    return {r["name"]: r for r in chip_smoke.smooth_bias(torch.device("cpu"))}
+    """``chip_smoke.smooth_bias``'s 2D rows on the CPU, where every wrapper
+    runs its plain version: the probe's own limits, from the plain versions."""
+    rows = chip_smoke.smooth_rows(chip_smoke.smooth_cases_2d(torch.device("cpu")))
+    return {r["name"]: r for r in rows}
 
 
 @pytest.mark.parametrize("order", ["interleaved", "apart"])
