@@ -44,10 +44,11 @@ Phases; any failure exits non-zero:
    ``nvidia-smi`` name and power limit;
 2. build: compiles ``dealii_spirk_tpu_torch/csrc`` with nvcc, one process
    per source, all started together;
-3. kernels: the 2D kernels of P3 on a smooth field at its finest level
-   and K3dg at P4's (``smooth_bias``): each kernel's mean error against
-   the f64 plain version within SMOOTH_BIAS times its f32 plain version's
-   (a rounding error that follows the field moves the solution); then
+3. kernels: the 2D kernels of P3 on a smooth field at its finest level,
+   K3dg and K4 at P4's and K3 at P4's 127 level (``smooth_bias``): each
+   kernel's mean error against the f64 plain version within SMOOTH_BIAS
+   times its f32 plain version's (a rounding error that follows the field
+   moves the solution); then
    every kernel against its plain torch version on the card at
    every shape the paths give it and at degrees 2-4 on small levels, to
    1e-5 max|ref| (K8, two chained f32 steps: 2e-5), with CUDA-event times
@@ -61,8 +62,10 @@ Phases; any failure exits non-zero:
    levels asked for pair steps launches no K8;
 3b. measurement (``measure_kernels``, MEASURE_CASES): K2 and K4-2D at P3's
    finest shape, K4-2D at m=255, K2 at the 3D shapes of P1, P2 and P4's
-   maps, each beside its library call, and K3dg at P4's finest level and
-   K9d at P7's slab, which have none: device time per launch from
+   maps, K4 at P1's and P4's finest levels and K9a at P6's and P7's slabs,
+   each beside its library call, and K3 at P1's finest level and P4's 127
+   level, K3dg at P4's finest level, K9c at P6's slab and K9d at P7's,
+   which have none: device time per launch from
    ``torch.profiler``, time per call from CUDA events in turns (kernel,
    library, library, kernel), L2-warm and L2-cold; printed and kept in the
    kernels line (``device_ms``, ``cold_ms``, ``measured``), not a gate;
@@ -164,17 +167,17 @@ KERNELS = {
     # LAUNCHES key: (C source, TPU kernel it replaces)
     "ms_mix_apply": (_CS + "ms_mix_apply.cu", f"{_ST}:2879"),
     "stage_mix": (_CS + "stage_mix.cu", f"{_ST}:2749"),
-    "cheb_iter": (_CS + "cheb_iter.cu", f"{_ST}:3196"),
-    "cheb_iter_dg": (_CS + "cheb_iter.cu", f"{_ST}:2503"),
+    "cheb_iter": (_CS + "march.cuh", f"{_ST}:3196"),
+    "cheb_iter_dg": (_CS + "march.cuh", f"{_ST}:2503"),
     "cheb_pair_dg": (_CS + "cheb_pair.cu", f"{_ST}:2215"),
-    "stencil_apply": (_CS + "stencil_apply.cu", f"{_ST}:682"),
+    "stencil_apply": (_CS + "march.cuh", f"{_ST}:682"),
     "stencil_apply_2d": (_CS + "stencil_apply.cu", f"{_ST}:832"),
     "mass_stiffness_apply": (_CS + "mass_stiffness_apply.cu", f"{_ST}:762"),
     "mass_stiffness_apply_2d": (_CS + "mass_stiffness_apply.cu", f"{_ST}:863"),
-    "stencil_apply_halo": (_CS + "stencil_apply.cu", f"{_SH}:102"),
+    "stencil_apply_halo": (_CS + "march.cuh", f"{_SH}:102"),
     "mass_stiffness_apply_halo": (_CS + "mass_stiffness_apply.cu", f"{_SH}:136"),
-    "cheb_iter_halo": (_CS + "cheb_iter.cu", f"{_SH}:164"),
-    "cheb_iter_dg_halo": (_CS + "cheb_iter.cu", f"{_SH}:187"),
+    "cheb_iter_halo": (_CS + "march.cuh", f"{_SH}:164"),
+    "cheb_iter_dg_halo": (_CS + "march.cuh", f"{_SH}:187"),
 }
 HALO = {  # halo kernel: its whole-field kernel
     "stencil_apply_halo": "stencil_apply",
@@ -285,8 +288,12 @@ MIX_CASES = [
 # The measurement phase (``measure_kernels``): (LAUNCHES key, dim, q_in,
 # q_out, refinement).  K2 and K4-2D at P3's finest shape, K4-2D also at m=255
 # (launch latency), K2 at the 3D shapes of P1, P2 and P4's T^-1 / T maps;
-# K3dg at P4's 255 level (six lanes) and K9d at P7's slab (one stage, the
-# first of two slabs: 128 planes of 255^2), which no PyTorch call computes.
+# K3 at P1's finest level (q=4, m=127) and P4's 127 level (six lanes), K4 at
+# P1's and at P4's 255 level, both also at m=31 (P1's third level: launch
+# latency); K3dg at P4's 255 level (six lanes); the halo kernels on one
+# stage at the first of two slabs: K9c and K9a at P6's (64 planes of 127^2),
+# K9a and K9d at P7's (128 planes of 255^2).  K4 and K9a beside cuDNN's
+# grouped conv3d; no PyTorch call computes K3, K3dg, K9c or K9d.
 MEASURE_CASES = [
     ("stage_mix", 2, 4, 4, 10),
     ("stencil_apply_2d", 2, 4, 4, 10),
@@ -295,13 +302,30 @@ MEASURE_CASES = [
     ("stage_mix", 3, 5, 5, 7),
     ("stage_mix", 3, 5, 6, 8),
     ("stage_mix", 3, 6, 5, 8),
+    ("cheb_iter", 3, 4, 4, 7),
+    ("cheb_iter", 3, 6, 6, 7),
+    ("cheb_iter", 3, 4, 4, 5),
+    ("stencil_apply", 3, 4, 4, 7),
+    ("stencil_apply", 3, 6, 6, 8),
+    ("stencil_apply", 3, 4, 4, 5),
     ("cheb_iter_dg", 3, 6, 6, 8),
+    ("cheb_iter_halo", 3, 1, 1, 7),
+    ("stencil_apply_halo", 3, 1, 1, 7),
+    ("stencil_apply_halo", 3, 1, 1, 8),
     ("cheb_iter_dg_halo", 3, 1, 1, 8),
 ]
 # the device kernels of a LAUNCHES key, by name in the profiler (default the
-# key itself): K3dg's and K9d's march, or the earlier tile kernel cheb_iter_kernel
-DEVICE_NAMES = {"cheb_iter_dg": ("cheb_dg_march", "cheb_iter_kernel"),
-                "cheb_iter_dg_halo": ("cheb_dg_march", "cheb_iter_kernel")}
+# key itself): the z march of each mode (csrc/march.cuh), or the kernels it
+# replaced (the tile kernels cheb_iter_kernel and stencil_apply_kernel, the
+# first z march cheb_dg_march), so that an older tree's arm is measured too
+DEVICE_NAMES = {
+    "cheb_iter": ("ChebInvd", "cheb_iter_kernel"),
+    "cheb_iter_halo": ("ChebInvd", "cheb_iter_kernel"),
+    "stencil_apply": ("Apply>", "stencil_apply_kernel"),
+    "stencil_apply_halo": ("Apply>", "stencil_apply_kernel"),
+    "cheb_iter_dg": ("ChebDiag", "cheb_dg_march", "cheb_iter_kernel"),
+    "cheb_iter_dg_halo": ("ChebDiag", "cheb_dg_march", "cheb_iter_kernel"),
+}
 TURNS = 3  # each: kernel, library, library, kernel
 # smooth_bias: a kernel's mean error on P3's smooth block within this many
 # times its plain version's, plus this share of max|f64| (the f32 round-off
@@ -309,6 +333,7 @@ TURNS = 3  # each: kernel, library, library, kernel
 # stiffness taps in one accumulator read 7.2e-9 against the plain 5.3e-11
 # (PERF.md, section 6); the 2D kernels now read 8.7e-11 and 1.0e-10.
 SMOOTH_BIAS, SMOOTH_FLOOR = 2.0, 1e-10
+SMOOTH_B = 0.1  # b of the 3D smooth-field cases
 L2_CACHE_BYTES = 50 * 2**20  # H100 L2; the L2-cold loops rotate over twice this
 
 
@@ -841,22 +866,49 @@ def _measure_setup(key: str, dim: int, qi: int, qo: int, ref: int, device) -> di
             "at": f"{dim}D p=1 m={m} q={qi}", "library": "grouped conv2d",
             "bound": bound(key, qi, qo, m**dim, 1, dim),
         }
-    # K3dg, K9d: d, r, x in; r', d', x' out
+    # the 3D stencil kernels, whole field or the first of two z slabs (one
+    # stage); the halo forms' operand carries p = 1 planes of each neighbour
+    halo = 1 if key in HALO else 0
+    nz = z_partition(m, 2)[0][1] if halo else m
+    sops = slab_ops(ops, 0, nz) if halo else ops
+    at = f"3D p=1 m={m} q={qi}" + (f" slab of {nz} planes" if halo else "")
+    own = (qi, nz, m, m)
+
+    def operand():
+        # a slab's operand: zeros below the domain (the exchange's planes there)
+        u = field(qi, nz + 2 * halo, m, m)
+        u[:, :halo] = 0.0
+        return u
+
+    if HALO.get(key, key) == "stencil_apply":
+        kern, plain = (st.stencil_apply_halo, st.stencil_apply_halo_ref) if halo else (
+            st.stencil_apply, st.stencil_apply_ref)
+        return {
+            "kern": lambda u: kern(sops, a, 0.1, u),
+            "plain": lambda u: plain(sops, a, 0.1, u),
+            "lib": shifted_conv(ops, qi, 3, a, 0.1, (0, 1, 1) if halo else 1),
+            "make": lambda: (operand(),),
+            "bytes": 4 * qi * (2 * nz + 2 * halo) * m * m,
+            "at": at, "library": "grouped conv3d",
+            "bound": bound(key, qi, qi, nz * m * m, 1, 3, halo_points=2 * halo * m * m),
+        }
+    # K3, K3dg and their slab forms: d, r, x (and K3's D^-1) in; r', d', x' out
     c1, c2 = vec(0.2, 0.9), vec(0.1, 0.5)
-    if key == "cheb_iter_dg":
-        nz, halo, at = m, 0, f"3D p=1 m={m} q={qi}"
-        kern = lambda d, r, x: st.cheb_iter_dg(ops, a, 0.1, c1, c2, d, r, x)  # noqa: E731
-        plain = lambda d, r, x: st.cheb_iter_dg_ref(ops, a, 0.1, c1, c2, d, r, x)  # noqa: E731
-    else:
-        nz, halo = z_partition(m, 2)[0][1], 1
-        sops = slab_ops(ops, 0, nz)
-        at = f"3D p=1 m={m} q={qi} slab of {nz} planes"
-        kern = lambda d, r, x: st.cheb_iter_dg_halo(sops, a, 0.1, c1, c2, d, r, x)  # noqa: E731
-        plain = lambda d, r, x: st.cheb_iter_dg_halo_ref(sops, a, 0.1, c1, c2, d, r, x)  # noqa: E731
+    fns = {
+        "cheb_iter": (st.cheb_iter, st.cheb_iter_ref),
+        "cheb_iter_halo": (st.cheb_iter_halo, st.cheb_iter_halo_ref),
+        "cheb_iter_dg": (st.cheb_iter_dg, st.cheb_iter_dg_ref),
+        "cheb_iter_dg_halo": (st.cheb_iter_dg_halo, st.cheb_iter_dg_halo_ref),
+    }
+    kern, plain = fns[key]
+    fields = PASSES[HALO.get(key, key)] - 4  # r, x and K3's D^-1 (in 0.5 .. 1.5)
     return {
-        "kern": kern, "plain": plain, "lib": None,
-        "make": lambda: (field(qi, nz + 2 * halo, m, m), field(qi, nz, m, m), field(qi, nz, m, m)),
-        "bytes": 4 * qi * (6 * nz + 2 * halo) * m * m,
+        "kern": lambda d, *rest: kern(sops, a, 0.1, c1, c2, d, *rest),
+        "plain": lambda d, *rest: plain(sops, a, 0.1, c1, c2, d, *rest),
+        "lib": None,
+        "make": lambda: (operand(),) + tuple(
+            field(*own) if i < 2 else field(*own).abs_().add_(0.5) for i in range(fields)),
+        "bytes": 4 * qi * (PASSES[HALO.get(key, key)] * nz + 2 * halo) * m * m,
         "at": at, "library": "none",
         "bound": bound(key, qi, qi, nz * m * m, 1, 3, halo_points=2 * halo * m * m),
     }
@@ -980,19 +1032,18 @@ def smooth_cases_2d(device):
            lambda: st.stage_mix_ref(ainv.float(), u32), lambda: st.stage_mix_ref(ainv, u64))
 
 
-def smooth_cases_3d(device):
-    """K3dg at P4's finest level (m = 255, its six V-cycle lanes): d_i =
-    (1 + i / 10) sin(pi x) sin(2 pi y) sin(pi z) + 0.3, x_i = (1 + i / 10)
-    sin(2 pi x) sin(pi y) sin(3 pi z), and r_i = s x_i with s = max|(a_i M +
-    b K) d_i|, so that r' = r - (a_i M + b K) d_i is of the apply's size
-    (a smoother's residual) and its rounding stays in sight; each output r',
-    d', x' as a case of its own."""
+def _smooth_block(device, ref: int):
+    """P4's six V-cycle lanes on its level of refinement ``ref`` (Q1):
+    (o32, o64, at, (a, c1, c2) in f64, d, r, x) with d_i = (1 + i / 10)
+    sin(pi x) sin(2 pi y) sin(pi z) + 0.3, x_i = (1 + i / 10) sin(2 pi x)
+    sin(pi y) sin(3 pi z), and r_i = s x_i with s = max|(a_i M + b K) d_i|,
+    so that r' = r - (a_i M + b K) d_i is of the apply's size (a smoother's
+    residual) and its rounding stays in sight; d, r, x in f32."""
     from dealii_spirk_tpu_torch.fem.grid import make_level
     from dealii_spirk_tpu_torch.ops.cuda import stencil as st
     from dealii_spirk_tpu_torch.ops.mass_laplace import level_ops
 
-    _dim, cfg, _L = PATHS["P4"]
-    q, b, level = 2 * ((cfg["IRKStages"] + 1) // 2), 0.1, make_level(cfg["NRefinements"], 1)
+    q, level = 2 * ((PATHS["P4"][1]["IRKStages"] + 1) // 2), make_level(ref, 1)
     o32, o64 = (level_ops(level, dt, device) for dt in (torch.float32, torch.float64))
     m = o32.m
     z = torch.arange(1, m + 1, dtype=torch.float64, device=device) / (m + 1)
@@ -1000,39 +1051,82 @@ def smooth_cases_3d(device):
     mode_d = sin(1)[:, None, None] * sin(2)[None, :, None] * sin(1)[None, None, :]
     mode_x = sin(3)[:, None, None] * sin(1)[None, :, None] * sin(2)[None, None, :]
     lanes = [1 + i / 10 for i in range(q)]
-    a, c1, c2 = (torch.linspace(lo, hi, q, dtype=torch.float64, device=device)
-                 for lo, hi in ((1.5, 4.5), (0.3, 0.8), (0.1, 0.4)))
+    coefs = tuple(torch.linspace(lo, hi, q, dtype=torch.float64, device=device)
+                  for lo, hi in ((1.5, 4.5), (0.3, 0.8), (0.1, 0.4)))
     d = torch.stack([w * mode_d + 0.3 for w in lanes]).float()
     del mode_d
-    scale = float(st.stencil_apply_ref(o64, a, b, d.double()).abs().max())
+    scale = float(st.stencil_apply_ref(o64, coefs[0], SMOOTH_B, d.double()).abs().max())
     x = torch.stack([w * mode_x for w in lanes]).float()
     r = (scale * x.double()).float()
-    del mode_x
-    f32 = [t.float() for t in (a, c1, c2)]
+    return o32, o64, f"3D m={m} q={q}, smooth", coefs, d, r, x
+
+
+def _smooth_arms(name: str, at: str, arms: dict, outputs=(None,)):
+    """The rows of one kernel on a smooth field, one per output (``outputs``
+    names them; None: one output): (name, where, kernel, f32 plain, f64
+    plain), ``arms`` the three calls; one arm's outputs are held at a time
+    (f64 at m = 255: 0.8 GB a field)."""
     outs = {}
 
-    def output(arm: str, k: int):
+    def output(arm: str, k):
         if arm not in outs:
-            outs.clear()  # one arm's three outputs at a time (f64: 2.4 GB)
-            if arm == "kernel":
-                outs[arm] = st.cheb_iter_dg(o32, f32[0], b, f32[1], f32[2], d, r, x)
-            elif arm == "plain":
-                outs[arm] = st.cheb_iter_dg_ref(o32, f32[0], b, f32[1], f32[2], d, r, x)
-            else:
-                outs[arm] = st.cheb_iter_dg_ref(o64, a, b, c1, c2, d.double(), r.double(),
-                                                x.double())
-        return outs[arm][k]
+            outs.clear()
+            outs[arm] = arms[arm]()
+        return outs[arm] if k is None else outs[arm][k]
 
-    at = f"3D m={m} q={q}, smooth"
-    for k, out in enumerate(("r'", "d'", "x'")):
-        yield (f"cheb_iter_dg {out}", at, lambda k=k: output("kernel", k),
-               lambda k=k: output("plain", k), lambda k=k: output("exact", k))
+    for k, out in enumerate(outputs):
+        k = None if out is None else k
+        yield (name if out is None else f"{name} {out}", at,
+               *(lambda arm=arm, k=k: output(arm, k) for arm in ("kernel", "plain", "exact")))
+
+
+def smooth_cases_3d(device):
+    """The V-cycle's 3D kernels on P4's six lanes of smooth fields
+    (``_smooth_block``): K3dg's r', d', x' and K4's (a_i M + b K) d at the
+    255 level, K3's r', d', x' at the 127 level (``_smooth_cases_k3``)."""
+    from dealii_spirk_tpu_torch.ops.cuda import stencil as st
+
+    b, fine = SMOOTH_B, PATHS["P4"][1]["NRefinements"]
+    o32, o64, at, (a, c1, c2), d, r, x = _smooth_block(device, fine)
+    a32, c132, c232 = a.float(), c1.float(), c2.float()
+    yield from _smooth_arms("cheb_iter_dg", at, {
+        "kernel": lambda: st.cheb_iter_dg(o32, a32, b, c132, c232, d, r, x),
+        "plain": lambda: st.cheb_iter_dg_ref(o32, a32, b, c132, c232, d, r, x),
+        "exact": lambda: st.cheb_iter_dg_ref(o64, a, b, c1, c2, d.double(), r.double(),
+                                             x.double()),
+    }, ("r'", "d'", "x'"))
+    yield from _smooth_arms("stencil_apply", at, {
+        "kernel": lambda: st.stencil_apply(o32, a32, b, d),
+        "plain": lambda: st.stencil_apply_ref(o32, a32, b, d),
+        "exact": lambda: st.stencil_apply_ref(o64, a, b, d.double()),
+    })
+    yield from _smooth_cases_k3(device, fine - 1)
+
+
+def _smooth_cases_k3(device, ref: int):
+    """K3 on the smooth fields of ``_smooth_block`` at refinement ``ref``
+    with that level's D^-1 field: the inverse of the exact diagonal of a_i M
+    + b K, rounded to f32 (the same input for every arm)."""
+    from dealii_spirk_tpu_torch.ops.cuda import stencil as st
+    from dealii_spirk_tpu_torch.ops.mass_laplace import operator_diagonal
+
+    b = SMOOTH_B
+    o32, o64, at, (a, c1, c2), d, r, x = _smooth_block(device, ref)
+    a32, c132, c232 = a.float(), c1.float(), c2.float()
+    invd = (1.0 / operator_diagonal(o64, a, b, 3)).float()
+    yield from _smooth_arms("cheb_iter", at, {
+        "kernel": lambda: st.cheb_iter(o32, a32, b, c132, c232, d, r, x, invd),
+        "plain": lambda: st.cheb_iter_ref(o32, a32, b, c132, c232, d, r, x, invd),
+        "exact": lambda: st.cheb_iter_ref(o64, a, b, c1, c2, d.double(), r.double(),
+                                          x.double(), invd.double()),
+    }, ("r'", "d'", "x'"))
 
 
 def smooth_bias(device) -> list[dict]:
     """Kernels on a smooth field: P3's 2D kernels of its vmult and V-cycle
-    at its finest level (``smooth_cases_2d``) and K3dg at P4's 255 level
-    (``smooth_cases_3d``): the mean and the largest error of each f32 kernel and
+    at its finest level (``smooth_cases_2d``) and the V-cycle's 3D kernels
+    at P4's levels, K3dg and K4 at 255, K3 at 127 (``smooth_cases_3d``):
+    the mean and the largest error of each f32 kernel and
     of its f32 plain version against the plain version in f64 on the same
     inputs, relative to max|f64|.  Random fields (the kernels phase) cannot
     show it: for a smooth field K u is a 1e-5 share of its terms at m =

@@ -15,9 +15,9 @@
 // the zero rows of its pair tables).  After a block-wide barrier stage 2
 // runs on the core tile and writes r2, d2 and x2 once.  The TPU kernel's
 // y blocking and aligned 24-row loads size it to VMEM and are not carried
-// over.  The sum-factorised passes and their summation order per point are
-// K3dg's (common.cuh), so two K3dg launches and one K8 launch agree to f32
-// round-off.
+// over.  The sum-factorised passes are K3dg's (march.cuh), in the tile
+// kernels' summation order (pair_zy), so two K3dg launches and one K8
+// launch agree to f32 round-off.
 //
 // Shared memory: d's 2p-haloed tile, r's p-haloed grown tile, the stage-1
 // z-pass and y-pass fields over the grown tile, and the band rows; stage 2
@@ -101,10 +101,11 @@ __device__ inline void load_box(float* dst, const float* __restrict__ u, int m, 
 }
 
 // z and y passes of (a M + b K) from an (OZ+2P) x (OY+2P) x (OX+2P) operand
-// to OZ x OY x OX outputs, in K3's order (common.cuh shifted_zy): E = a Zm +
-// b Zk, F = b Zm over OZ x (OY+2P) x (OX+2P); C = My E + Ky F, D = My F over
-// OZ x OY x (OX+2P).  Output row oz takes band row off + oz of the grown
-// tile's tables (GZ, GY rows each).
+// to OZ x OY x OX outputs, in the tile kernels' order (one accumulator for
+// the y pass's mass and stiffness taps; the march sums them apart,
+// march.cuh): E = a Zm + b Zk, F = b Zm over OZ x (OY+2P) x (OX+2P);
+// C = My E + Ky F, D = My F over OZ x OY x (OX+2P).  Output row oz takes
+// band row off + oz of the grown tile's tables (GZ, GY rows each).
 template <int P, int OZ, int OY, int OX>
 __device__ inline void pair_zy(const float* in, float* E, float* F, float* C, float* D,
                                const float* bz, const float* by, int off, float a, float b) {

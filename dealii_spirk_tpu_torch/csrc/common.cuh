@@ -6,9 +6,11 @@
 // (k in [-p, p]), with zero weights for every coupling that leaves
 // [0, m) — the convention of dealii_spirk_tpu/ops/banded.py.
 //
-// One block of NTHREADS threads owns a TZ x TY x TX output tile of one
-// stage.  It stages the input tile with a p-point halo on every side in
-// shared memory (zero outside the domain, loaded with masks — nothing
+// The 3D tile kernels (K1 ms_mix_apply.cu and K5 mass_stiffness_apply.cu;
+// K8 cheb_pair.cu sizes its own tiles; K3, K4 and their slab forms march
+// over z instead, march.cuh): one block of NTHREADS threads owns a
+// TZ x TY x TX output tile of one stage.  It stages the input tile with a
+// p-point halo on every side in shared memory (zero outside the domain, loaded with masks — nothing
 // relies on wrap-around), then runs the three sum-factorised 1D passes
 // there (z, then y, then x), keeping every intermediate on chip.  The
 // per-row band weights of the tile are staged in shared memory too.
@@ -130,61 +132,6 @@ __device__ inline void out_point(int s, int& lz, int& ly, int& lx) {
   int t = i / TX;
   ly = t % TY;
   lz = t / TY;
-}
-
-// Shifted operator (a M + b K) of the tile's stage: z pass E = a Zm + b Zk,
-// F = b Zm; y pass C = My E + Ky F, D = My F (written to C, D); the caller
-// finishes with the x pass out = Mx C + Kx D (shifted_x).
-template <int P>
-__device__ inline void shifted_zy(const float* in, float* E, float* F, float* C, float* D,
-                                  const Bands<P>& bd, float a, float b) {
-  using T = Tile<P>;
-  for (int i = threadIdx.x; i < T::ZP; i += NTHREADS) {
-    int lx = i % T::HX;
-    int t = i / T::HX;
-    int ly = t % T::HY;
-    int lz = t / T::HY;
-    float zm = 0.f, zk = 0.f;
-#pragma unroll
-    for (int k = 0; k < T::NB; ++k) {
-      float v = in[((lz + k) * T::HY + ly) * T::HX + lx];
-      zm += bd.zm(k, lz) * v;
-      zk += bd.zk(k, lz) * v;
-    }
-    E[i] = a * zm + b * zk;
-    F[i] = b * zm;
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < T::YP; i += NTHREADS) {
-    int lx = i % T::HX;
-    int t = i / T::HX;
-    int ly = t % TY;
-    int lz = t / TY;
-    float c = 0.f, d = 0.f;
-#pragma unroll
-    for (int k = 0; k < T::NB; ++k) {
-      int j = (lz * T::HY + ly + k) * T::HX + lx;
-      float e = E[j], f = F[j];
-      float wm = bd.ym(k, ly), wk = bd.yk(k, ly);
-      c += wm * e + wk * f;
-      d += wm * f;
-    }
-    C[i] = c;
-    D[i] = d;
-  }
-  __syncthreads();
-}
-
-template <int P>
-__device__ inline float shifted_x(const float* C, const float* D, const Bands<P>& bd,
-                                  int lz, int ly, int lx) {
-  using T = Tile<P>;
-  float out = 0.f;
-  int base = (lz * TY + ly) * T::HX + lx;
-#pragma unroll
-  for (int k = 0; k < T::NB; ++k)
-    out += bd.xm(k, lx) * C[base + k] + bd.xk(k, lx) * D[base + k];
-  return out;
 }
 
 // M u and K u of the tile's stage from shared 1D intermediates: z pass

@@ -9,22 +9,22 @@
 // C = My E + Ky F, D = My F; out = Mx C + Kx D.  In 2D the y pass is
 // K5's (A = My u, B = Ky u) and out = Mx (a A + b B) + b Kx A.  The TPU
 // kernel holds a whole plane per grid step in VMEM (in 2D its x pass is an
-// MXU product with a banded matrix); in 3D here one block owns a
-// 8 x 8 x 32 tile with its p-halo (common.cuh).
+// MXU product with a banded matrix).
 //
-// K9a (spirk_stencil_apply_halo) is the 3D kernel on one z slab of a
-// space-sharded block: u is (q, nzl + 2p, m, m) with p planes of each z
-// neighbour (zeros at the domain ends), out the slab's (q, nzl, m, m), the
-// z band rows those of global planes z_off .. z_off + nzl (ZSlab,
-// common.cuh).  It replaces sharded_stencil_apply_canon
+// 3D: the z march's Apply mode (march.cuh): a block marches a chunk of z
+// planes of one stage's (y, x) tile over a cp.async ring of haloed u planes
+// and writes out, the stiffness taps summed apart from the mass taps in the
+// y and x passes (out = Mx C + Kx D as two sums; the earlier tile kernel
+// added them in one accumulator).  K9a (spirk_stencil_apply_halo) is the same
+// launch on one z slab of a space-sharded block: u is (q, nzl + 2p, m, m)
+// with p planes of each z neighbour (zeros at the domain ends), out the
+// slab's (q, nzl, m, m), the z band rows those of global planes z_off ..
+// z_off + nzl (ZSlab, common.cuh).  It replaces sharded_stencil_apply_canon
 // (dealii_spirk_tpu/ops/pallas/sharded.py), i.e. fused_stencil_apply_canon
 // with halo_z=True, and equals the whole-field kernel bit for bit.
 //
 // Bound on the H100: by design DRAM (one read, one write of the block,
-// ~50 flops per point at p=1).  3D: this simple version reads each input
-// once from DRAM (halo re-reads hit L2) but measured 18% of the DRAM roof
-// at q=4, m=127 (PERF.md): its three barrier-separated shared-memory
-// passes over haloed tiles bind it, the next thing to streamline.
+// ~40 flops per point at p=1).
 //
 // 2D (the Hopper design of K4-2D): a warp owns a strip of 64 columns of
 // one stage (a lane holds one column of each of two 32-column slices) and
@@ -50,43 +50,9 @@
 // per launch on the device, 0.0165 ms L2-cold, against a 0.0100 ms DRAM
 // bound (PERF.md); it takes 119 registers at p=1 (64 forced by launch
 // bounds spilled and ran slower).
-#include "common.cuh"
+#include "march.cuh"
 
 namespace spirk {
-
-// a: (q,) per-stage shifts
-template <int P>
-__global__ void __launch_bounds__(NTHREADS)
-stencil_apply_kernel(const float* __restrict__ u, float* __restrict__ out,
-                     const float* __restrict__ mband, const float* __restrict__ kband,
-                     const float* __restrict__ a, float b, int m, ZSlab zs) {
-  using T = Tile<P>;
-  extern __shared__ float smem[];
-  float* in = smem;
-  float* E = in + T::IN;
-  float* F = E + T::ZP;
-  float* C = F + T::ZP;
-  float* D = C + T::YP;
-  float* bands = D + T::YP;
-
-  const int nzt = (zs.nz + TZ - 1) / TZ;
-  const int iq = blockIdx.z / nzt;
-  const int z0 = (blockIdx.z % nzt) * TZ, y0 = blockIdx.y * TY, x0 = blockIdx.x * TX;
-  const long long stage = iq * zs.out_stride(m);
-
-  Bands<P> bd = load_bands<P>(bands, mband, kband, m, zs, z0, y0, x0);
-  load_tile<P>(in, u + iq * zs.in_stride(m), m, zs, z0, y0, x0);
-  __syncthreads();
-  shifted_zy<P>(in, E, F, C, D, bd, a[iq], b);
-#pragma unroll
-  for (int s = 0; s < T::PTS; ++s) {
-    int lz, ly, lx;
-    out_point(s, lz, ly, lx);
-    int gz = z0 + lz, gy = y0 + ly, gx = x0 + lx;
-    if (gz < zs.nz && gy < m && gx < m)
-      out[stage + ((long long)gz * m + gy) * m + gx] = shifted_x<P>(C, D, bd, lz, ly, lx);
-  }
-}
 
 constexpr int S2_WARPS = 4;  // warps per block, each on a task of its own
 constexpr int S2_G = 8;      // rows loaded at once; a task's rows are a multiple
@@ -231,45 +197,39 @@ cudaError_t launch_stencil_apply_2d(const float* u, float* out, const float* mba
   return cudaGetLastError();
 }
 
-template <int P>
-cudaError_t launch_stencil_apply(const float* u, float* out, const float* mband,
-                                 const float* kband, const float* a, float b, int q, int m,
-                                 ZSlab zs, cudaStream_t stream) {
-  const int bytes = Tile<P>::SMEM_FLOATS * sizeof(float);
-  cudaError_t err = allow_smem(stencil_apply_kernel<P>, bytes);
-  if (err != cudaSuccess) return err;
-  stencil_apply_kernel<P><<<tile_grid(m, zs.nz, q), NTHREADS, bytes, stream>>>(
-      u, out, mband, kband, a, b, m, zs);
-  return cudaGetLastError();
-}
-
-int stencil_apply_entry(const float* u, float* out, const float* mband, const float* kband,
-                        const float* a, float b, int q, int m, ZSlab zs, int p, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (p) {
-    case 1: return launch_stencil_apply<1>(u, out, mband, kband, a, b, q, m, zs, s);
-    case 2: return launch_stencil_apply<2>(u, out, mband, kband, a, b, q, m, zs, s);
-    case 3: return launch_stencil_apply<3>(u, out, mband, kband, a, b, q, m, zs, s);
-    case 4: return launch_stencil_apply<4>(u, out, mband, kband, a, b, q, m, zs, s);
-    default: return cudaErrorInvalidValue;
-  }
+int apply_entry(const float* u, float* out, const float* mband, const float* kband,
+                const float* a, float b, int q, int m, ZSlab zs, int chunk, int p,
+                void* stream) {
+  MarchArgs g{};
+  g.d = u;
+  g.out = out;
+  g.mband = mband;
+  g.kband = kband;
+  g.a = a;
+  g.b = b;
+  g.m = m;
+  g.chunk = chunk;
+  g.zs = zs;
+  return march_entry<Apply>(g, q, p, stream);
 }
 
 }  // namespace spirk
 
+// chunk: z planes per block, 1..MZC
 extern "C" int spirk_stencil_apply(const float* u, float* out, const float* mband,
                                    const float* kband, const float* a, float b, int q, int m,
-                                   int p, void* stream) {
-  return spirk::stencil_apply_entry(u, out, mband, kband, a, b, q, m, spirk::whole_field(m), p,
-                                    stream);
+                                   int chunk, int p, void* stream) {
+  return spirk::apply_entry(u, out, mband, kband, a, b, q, m, spirk::whole_field(m), chunk, p,
+                            stream);
 }
 
 // u: (q, nzl + 2p, m, m), out: (q, nzl, m, m)
 extern "C" int spirk_stencil_apply_halo(const float* u, float* out, const float* mband,
                                         const float* kband, const float* a, float b, int q,
-                                        int m, int nzl, int z_off, int p, void* stream) {
-  return spirk::stencil_apply_entry(u, out, mband, kband, a, b, q, m,
-                                    spirk::ZSlab{nzl, p, z_off}, p, stream);
+                                        int m, int nzl, int z_off, int chunk, int p,
+                                        void* stream) {
+  return spirk::apply_entry(u, out, mband, kband, a, b, q, m, spirk::ZSlab{nzl, p, z_off},
+                            chunk, p, stream);
 }
 
 extern "C" int spirk_stencil_apply_2d(const float* u, float* out, const float* mband,

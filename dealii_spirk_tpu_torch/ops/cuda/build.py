@@ -32,25 +32,27 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points: name -> argtypes (every one returns a cudaError_t as int)
 SIGNATURES = {
-    # u, out, mband, kband, a (q,), b, q, m, p, stream
-    "spirk_stencil_apply": (_P, _P, _P, _P, _P, _F, _I, _I, _I, _P),
+    # the z march (csrc/march.cuh), whole field: fields, mband, kband, a (q,), b,
+    # [c1 (q,), c2 (q,),] q, m, chunk, p, stream (ops/cuda/stencil.py::_march)
+    # K4: u, out
+    "spirk_stencil_apply": (_P,) * 5 + (_F,) + (_I,) * 4 + (_P,),
+    # K3: d, r, x, invd, r_out, d_out, x_out
+    "spirk_cheb_iter": (_P,) * 10 + (_F, _P, _P) + (_I,) * 4 + (_P,),
+    # K3dg: d, r, x, mdiag, kdiag, r_out, d_out, x_out
+    "spirk_cheb_iter_dg": (_P,) * 11 + (_F, _P, _P) + (_I,) * 4 + (_P,),
+    # the march on a z slab: ..., q, m, nzl, z_off, chunk, p, stream
+    "spirk_stencil_apply_halo": (_P,) * 5 + (_F,) + (_I,) * 6 + (_P,),
+    "spirk_cheb_iter_halo": (_P,) * 10 + (_F, _P, _P) + (_I,) * 6 + (_P,),
+    "spirk_cheb_iter_dg_halo": (_P,) * 11 + (_F, _P, _P) + (_I,) * 6 + (_P,),
+    # K4-2D: u, out, mband, kband, a (q,), b, q, m, p, stream
     "spirk_stencil_apply_2d": (_P, _P, _P, _P, _P, _F, _I, _I, _I, _P),
     # u, mu, ku, mband, kband, q, m, p, stream
     "spirk_mass_stiffness_apply": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "spirk_mass_stiffness_apply_2d": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # d, r, x, invd, r_out, d_out, x_out, mband, kband, w, q, m, p, stream
-    "spirk_cheb_iter": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # d, r, x, mdiag, kdiag, r_out, d_out, x_out, mband, kband, a (q,), b, c1 (q,),
-    # c2 (q,), q, m, chunk, p, stream
-    "spirk_cheb_iter_dg": (_P,) * 11 + (_F, _P, _P) + (_I,) * 4 + (_P,),
+    # K9b: ..., q, m, nzl, z_off, p, stream
+    "spirk_mass_stiffness_apply_halo": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # K8: d, r, x, mdiag, kdiag, r_out, d_out, x_out, mband, kband, w (q, 6), q, m, p, stream
     "spirk_cheb_pair_dg": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # the z-slab forms: ..., q, m, nzl, z_off, p, stream
-    "spirk_stencil_apply_halo": (_P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P),
-    "spirk_mass_stiffness_apply_halo": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "spirk_cheb_iter_halo": (_P,) * 10 + (_I,) * 5 + (_P,),
-    # ..., c2, q, m, nzl, z_off, chunk, p, stream
-    "spirk_cheb_iter_dg_halo": (_P,) * 11 + (_F, _P, _P) + (_I,) * 6 + (_P,),
     # u, out, mband, kband, mw, q, m, p, stream
     "spirk_ms_mix_apply": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # W, out, mat, q_out, q_in, n, stream

@@ -16,9 +16,12 @@ instead.
 
 All are bound by device memory at p=1 on the H100 (3.35 TB/s against
 67 TFLOP/s f32): each moves 2 to 7 field passes of 4 bytes per point
-against under 100 flops per point.  The simple design keeps every 1D
-intermediate in shared memory so each kernel reads each input about once
-from DRAM (halo re-reads come mostly from L2) and writes each output once.
+against under 100 flops per point.  Each keeps every 1D intermediate in
+shared memory or registers so that it reads each input about once from
+DRAM (halo re-reads come mostly from L2) and writes each output once.  The
+V-cycle's 3D kernels (K4, K3, K3dg and their slab forms) are one z march
+(``csrc/march.cuh``): a block marches over a chunk of z planes of one
+stage's (y, x) tile, ``march_plan`` picks the chunk per launch.
 
 Wrappers and their ``LAUNCHES`` keys (one per CUDA entry point; a 2D
 block counts under ``<key>_2d``), with the Pallas kernels they replace
@@ -31,9 +34,7 @@ block counts under ``<key>_2d``), with the Pallas kernels they replace
 * K3 ``cheb_iter`` — ``fused_cheb_iter_canon``: one 3D Chebyshev step;
 * K3dg ``cheb_iter_dg`` — ``fused_cheb_iter_canon`` with ``diag_tables``
   (``_fused_cheb_canon_dg``): K3 with the Jacobi diagonal rebuilt per
-  point from the level's 1D diagonals, so no D^-1 field is read; a block
-  marches over a chunk of z planes of its (y, x) tile (``march_plan``
-  picks the chunk per launch);
+  point from the level's 1D diagonals, so no D^-1 field is read;
 * K8 ``cheb_pair_dg`` — ``fused_cheb_pair_canon``: two K3dg steps in one
   pass (stage 1 on the tile grown by p, stage 2 on the tile), 6 field
   passes for two steps; the unsharded V-cycle takes it only when asked
@@ -66,10 +67,11 @@ from ..mass_laplace import (
 )
 
 QMAX = 8  # most stages the stage-coupled kernels hold (csrc/common.cuh)
-# K3dg / K9d's z march (csrc/cheb_iter.cu): the (y, x) output tile of a
-# block, the most planes one block marches (csrc MZC; at P4's shape chunks
-# of 16 planes ran faster than chunks of 32 or 64 on the H100, PERF.md), and
-# the blocks a launch should have at least: two per SM of the H100 (132 SMs)
+# The z march (csrc/march.cuh: K4, K3, K3dg and their slab forms K9a, K9c,
+# K9d): the (y, x) output tile of a block, the most planes one block
+# marches (csrc MZC; at P4's shape chunks of 16 planes ran faster than
+# chunks of 32 or 64 on the H100, PERF.md), and the blocks a launch should
+# have at least: two per SM of the H100 (132 SMs)
 MARCH_TILE = (16, 64)
 MARCH_MAX_CHUNK = 16
 MARCH_MIN_BLOCKS = 2 * 132
@@ -238,9 +240,9 @@ def _check_block(ops: LevelOps, u: torch.Tensor, name: str) -> tuple[int, int, i
 
 
 def _coefs(q: int, device, *cols) -> torch.Tensor:
-    """(q, len(cols)) f32 table of per-stage coefficients, built on the
-    device (no host round trip): each column is a Python scalar, a 0-d or
-    a (q,) tensor."""
+    """(q, len(cols)) f32 table of per-stage coefficients (K8's six), built
+    on the device (no host round trip): each column is a Python scalar, a
+    0-d or a (q,) tensor."""
     out = []
     for c in cols:
         if isinstance(c, torch.Tensor):
@@ -251,10 +253,10 @@ def _coefs(q: int, device, *cols) -> torch.Tensor:
 
 
 def _stage_coefs(a, q: int, device) -> torch.Tensor:
-    """``a`` as the contiguous f32 (q,) table that K4 and K9a read by
-    pointer: a (q,) f32 contiguous tensor on ``device`` as it is (no copy,
-    no device op), any other (q,) or 0-d tensor converted, a Python scalar
-    filled in."""
+    """``a`` as the contiguous f32 (q,) table that the z march (its a, c1,
+    c2) and K4-2D read by pointer: a (q,) f32 contiguous tensor on
+    ``device`` as it is (no copy, no device op), any other (q,) or 0-d
+    tensor converted, a Python scalar filled in."""
     if not isinstance(a, torch.Tensor):
         return torch.full((q,), float(a), dtype=torch.float32, device=device)
     if a.ndim == 0:
@@ -267,11 +269,11 @@ def _stage_coefs(a, q: int, device) -> torch.Tensor:
 
 
 def march_plan(q: int, nz: int, m: int) -> tuple[int, tuple[int, int, int]]:
-    """(chunk, grid) of a K3dg / K9d launch over ``nz`` output planes of
-    ``q`` stages of m x m: the most planes a block marches, a power of two
-    up to MARCH_MAX_CHUNK, the largest that leaves MARCH_MIN_BLOCKS blocks
-    (1 where even that does not), and the launch grid the kernel takes
-    from it (x tiles, y tiles, q * chunks; ``march_planes``)."""
+    """(chunk, grid) of a z-march launch over ``nz`` output planes of ``q``
+    stages of m x m: the most planes a block marches, a power of two up to
+    MARCH_MAX_CHUNK, the largest that leaves MARCH_MIN_BLOCKS blocks (1
+    where even that does not), and the launch grid the kernel takes from
+    it (x tiles, y tiles, q * chunks; ``march_planes``)."""
     ty, tx = MARCH_TILE
     tiles = -(-m // tx), -(-m // ty)
     chunk = MARCH_MAX_CHUNK
@@ -282,26 +284,25 @@ def march_plan(q: int, nz: int, m: int) -> tuple[int, tuple[int, int, int]]:
 
 def march_planes(nz: int, chunk: int, bz: int) -> tuple[int, int, int]:
     """(stage, first plane, end plane) of the blocks at ``blockIdx.z = bz``,
-    as ``cheb_dg_march`` reads it."""
+    as the march reads it."""
     nch = -(-nz // chunk)
     z0 = (bz % nch) * chunk
     return bz // nch, z0, min(z0 + chunk, nz)
 
 
-def _cheb_dg_launch(name: str, ops: LevelOps, a, b, c1, c2, d, r, x, q: int, nz: int,
-                    *slab) -> tuple:
-    """Launch K3dg or K9d (``name``) over ``nz`` planes; ``slab``: (nzl,
-    z_off) for K9d.  The coefficients go as (q,) tables (no device op where
-    they are f32 (q,) tensors already) and ``b`` by value."""
-    r_out, d_out, x_out = (torch.empty_like(r) for _ in range(3))
-    device = d.device
-    a, c1, c2 = (_stage_coefs(c, q, device) for c in (a, c1, c2))
+def _march(name: str, ops: LevelOps, q: int, nz: int, fields: tuple, a, b, cs=(),
+           slab=()) -> None:
+    """Launch the z-march entry point ``name`` over ``nz`` output planes of
+    ``q`` stages: ``fields`` (the tensors before the band tables), the band
+    tables, ``a`` as a (q,) table, ``b`` by value, ``cs`` (Chebyshev: c1,
+    c2) as (q,) tables (no device op where they are f32 (q,) tensors
+    already), q, m, ``slab`` (a slab's nzl, z_off), the plan's chunk, p."""
+    device = fields[0].device
+    tabs = [_stage_coefs(c, q, device) for c in (a, *cs)]  # held until the launch is queued
     chunk, _grid = march_plan(q, nz, ops.m)
-    _launch_raw(name, device, *(t.data_ptr() for t in (
-        d, r, x, ops.mass_diag, ops.stiff_diag, r_out, d_out, x_out, ops.mass_band,
-        ops.stiff_band, a)), float(b), c1.data_ptr(), c2.data_ptr(), q, ops.m, *slab, chunk,
-        ops.p)
-    return r_out, d_out, x_out
+    _launch_raw(name, device, *(t.data_ptr() for t in fields), ops.mass_band.data_ptr(),
+                ops.stiff_band.data_ptr(), tabs[0].data_ptr(), float(b),
+                *(t.data_ptr() for t in tabs[1:]), q, ops.m, *slab, chunk, ops.p)
 
 
 def _launch(name: str, *args) -> None:
@@ -336,18 +337,22 @@ def _entry(name: str, u: torch.Tensor) -> str:
 
 
 def stencil_apply(ops: LevelOps, a, b, u: torch.Tensor) -> torch.Tensor:
-    """K4 (3D) / K4-2D: (a_i M + b K) u_i per stage; ``a`` scalar or (q,),
-    ``b`` a Python scalar (passed by value: a launch is one device op)."""
+    """K4 (3D, the z march) / K4-2D: (a_i M + b K) u_i per stage; ``a``
+    scalar or (q,), ``b`` a Python scalar (passed by value: a launch is one
+    device op)."""
     if _on_cpu(u, ops.mass_band):
         return stencil_apply_ref(ops, a, b, u)
     q, m, p = _check_block(ops, u, "u")
-    device = u.device
     out = torch.empty_like(u)
-    coefs = _stage_coefs(a, q, device)  # held until the launch is queued
-    name = _entry("stencil_apply", u)
-    _launch_raw("spirk_" + name, device, u.data_ptr(), out.data_ptr(), ops.mass_band.data_ptr(),
-                ops.stiff_band.data_ptr(), coefs.data_ptr(), float(b), q, m, p)
-    LAUNCHES[name] += 1
+    if u.ndim == 4:
+        _march("spirk_stencil_apply", ops, q, m, (u, out), a, b)
+        LAUNCHES["stencil_apply"] += 1
+        return out
+    coefs = _stage_coefs(a, q, u.device)  # held until the launch is queued
+    _launch_raw("spirk_stencil_apply_2d", u.device, u.data_ptr(), out.data_ptr(),
+                ops.mass_band.data_ptr(), ops.stiff_band.data_ptr(), coefs.data_ptr(), float(b),
+                q, m, p)
+    LAUNCHES["stencil_apply_2d"] += 1
     return out
 
 
@@ -370,15 +375,11 @@ def cheb_iter(ops: LevelOps, a, b, c1, c2, d, r, x, invd):
         return cheb_iter_ref(ops, a, b, c1, c2, d, r, x, invd)
     if d.ndim != 4:
         raise ValueError("cheb_iter takes 3D stage blocks (q, m, m, m)")
-    q, m, p = _check_block(ops, d, "d")
+    q, m, _ = _check_block(ops, d, "d")
     for t, name in ((r, "r"), (x, "x"), (invd, "invd")):
         _check_field(t, d.shape, name)
     r_out, d_out, x_out = (torch.empty_like(d) for _ in range(3))
-    w = _coefs(q, d.device, a, b, c1, c2)
-    _launch(
-        "spirk_cheb_iter", d, r, x, invd, r_out, d_out, x_out,
-        ops.mass_band, ops.stiff_band, w, q, m, p,
-    )
+    _march("spirk_cheb_iter", ops, q, m, (d, r, x, invd, r_out, d_out, x_out), a, b, (c1, c2))
     LAUNCHES["cheb_iter"] += 1
     return r_out, d_out, x_out
 
@@ -396,9 +397,11 @@ def cheb_iter_dg(ops: LevelOps, a, b, c1, c2, d, r, x):
         _check_field(t, d.shape, name)
     for t in (ops.mass_diag, ops.stiff_diag):
         _check_field(t, (m,), "1D diagonal")
-    out = _cheb_dg_launch("spirk_cheb_iter_dg", ops, a, b, c1, c2, d, r, x, q, m)
+    r_out, d_out, x_out = (torch.empty_like(d) for _ in range(3))
+    _march("spirk_cheb_iter_dg", ops, q, m,
+           (d, r, x, ops.mass_diag, ops.stiff_diag, r_out, d_out, x_out), a, b, (c1, c2))
     LAUNCHES["cheb_iter_dg"] += 1
-    return out
+    return r_out, d_out, x_out
 
 
 def cheb_pair_dg(ops: LevelOps, a, b, c1a, c2a, c1b, c2b, d, r, x):
@@ -446,10 +449,9 @@ def stencil_apply_halo(ops: LevelOps, a, b, u_h: torch.Tensor) -> torch.Tensor:
     p planes of each z neighbour, the result is (q, nzl, m, m)."""
     if _on_cpu(u_h, ops.mass_band):
         return stencil_apply_halo_ref(ops, a, b, u_h)
-    q, m, p, nzl = _check_slab(ops, u_h, "u_h")
+    q, m, _, nzl = _check_slab(ops, u_h, "u_h")
     out = torch.empty((q, nzl, m, m), dtype=u_h.dtype, device=u_h.device)
-    _launch("spirk_stencil_apply_halo", u_h, out, ops.mass_band, ops.stiff_band,
-            _stage_coefs(a, q, u_h.device), float(b), q, m, nzl, ops.z_off, p)
+    _march("spirk_stencil_apply_halo", ops, q, nzl, (u_h, out), a, b, slab=(nzl, ops.z_off))
     LAUNCHES["stencil_apply_halo"] += 1
     return out
 
@@ -472,15 +474,12 @@ def cheb_iter_halo(ops: LevelOps, a, b, c1, c2, d_h, r, x, invd):
     ``r``, ``x``, ``invd`` and the results (r', d', x') are (q, nzl, m, m)."""
     if _on_cpu(d_h, r, x, invd, ops.mass_band):
         return cheb_iter_halo_ref(ops, a, b, c1, c2, d_h, r, x, invd)
-    q, m, p, nzl = _check_slab(ops, d_h, "d_h")
+    q, m, _, nzl = _check_slab(ops, d_h, "d_h")
     for t, name in ((r, "r"), (x, "x"), (invd, "invd")):
         _check_field(t, (q, nzl, m, m), name)
     r_out, d_out, x_out = (torch.empty_like(r) for _ in range(3))
-    w = _coefs(q, d_h.device, a, b, c1, c2)
-    _launch(
-        "spirk_cheb_iter_halo", d_h, r, x, invd, r_out, d_out, x_out,
-        ops.mass_band, ops.stiff_band, w, q, m, nzl, ops.z_off, p,
-    )
+    _march("spirk_cheb_iter_halo", ops, q, nzl, (d_h, r, x, invd, r_out, d_out, x_out), a, b,
+           (c1, c2), (nzl, ops.z_off))
     LAUNCHES["cheb_iter_halo"] += 1
     return r_out, d_out, x_out
 
@@ -495,10 +494,12 @@ def cheb_iter_dg_halo(ops: LevelOps, a, b, c1, c2, d_h, r, x):
         _check_field(t, (q, nzl, m, m), name)
     for t in (ops.mass_diag, ops.stiff_diag):
         _check_field(t, (m,), "1D diagonal")
-    out = _cheb_dg_launch("spirk_cheb_iter_dg_halo", ops, a, b, c1, c2, d_h, r, x, q, nzl,
-                          nzl, ops.z_off)
+    r_out, d_out, x_out = (torch.empty_like(r) for _ in range(3))
+    _march("spirk_cheb_iter_dg_halo", ops, q, nzl,
+           (d_h, r, x, ops.mass_diag, ops.stiff_diag, r_out, d_out, x_out), a, b, (c1, c2),
+           (nzl, ops.z_off))
     LAUNCHES["cheb_iter_dg_halo"] += 1
-    return out
+    return r_out, d_out, x_out
 
 
 def ms_mix_apply(ops: LevelOps, Ainv: torch.Tensor, tau, u: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Two versions of the port's K3dg and K9d side by side on one CUDA device:
-``chip_smoke.py``'s measurement phase (and, with ``--smooth``, its K3dg
-smooth-field rows) run on the package of each arm, in turns.
+"""Two versions of the port's z-marching kernels side by side on one CUDA
+device: ``chip_smoke.py``'s measurement phase (and, with ``--smooth``, its
+3D smooth-field rows) run on the package of each arm, in turns.
 
     python3 scripts/torch_kernel_ab.py --parent DIR [--arm-tree NAME=DIR ...]
                                        [--order parent,tree,tree,parent] [--smooth] [--check]
@@ -13,11 +13,13 @@ is this checkout; ``--arm-tree`` names further trees for ``--order``.
 Each arm runs in a process of its own that imports
 ``dealii_spirk_tpu_torch`` from its tree (so it builds and launches that
 tree's kernels) and this checkout's ``chip_smoke.py``, and measures the
-MEASURE_CASES of K3dg and K9d (``cheb_iter_dg``, ``cheb_iter_dg_halo``):
+MEASURE_CASES of KEYS (K3, K4, K9c, K9a, K3dg, K9d):
 device time per launch from ``torch.profiler``, time per call from CUDA
 events, L2-warm and L2-cold, over ``chip_smoke.TURNS`` turns, beside the
 bound; ``--check`` holds each kernel to its plain version at the measured
-shape first, ``--smooth`` adds K3dg's smooth-field rows.  The arms'
+shape first and takes a digest of its outputs' bytes, and the arms'
+digests of BITWISE (K3dg, K9d) must be equal, as ``torch.equal`` would
+find them; ``--smooth`` adds the 3D smooth-field rows.  The arms'
 wrappers must take the same Python arguments.  Prints one line per arm and
 case, a table, and writes every figure as JSON to ``--out``.  Needs a CUDA
 device; imports nothing of JAX.
@@ -26,6 +28,7 @@ device; imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib.util
 import json
 import os
@@ -34,13 +37,24 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TAG = "AB_RESULT "
-KEYS = ("cheb_iter_dg", "cheb_iter_dg_halo")
+KEYS = ("cheb_iter", "stencil_apply", "cheb_iter_halo", "stencil_apply_halo", "cheb_iter_dg",
+        "cheb_iter_dg_halo")
+# kernels whose arithmetic every arm must keep bit for bit
+BITWISE = ("cheb_iter_dg", "cheb_iter_dg_halo")
+
+
+def digest(out) -> str:
+    """sha256 of the bytes of a kernel's outputs, in order."""
+    h = hashlib.sha256()
+    for t in out if isinstance(out, tuple) else (out,):
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def run_arm(tree: str, smooth: bool, check: bool) -> dict:
     """In this process: the measurement of KEYS on ``tree``'s package;
     ``check``: each kernel held to its plain version at the measured shape
-    first (``chip_smoke.REL_TOL``)."""
+    first (``chip_smoke.REL_TOL``) and its outputs' digest kept."""
     sys.path.insert(0, os.path.abspath(tree))
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
     cs = importlib.util.module_from_spec(spec)
@@ -58,14 +72,16 @@ def run_arm(tree: str, smooth: bool, check: bool) -> dict:
     build.build()
     device = torch.device("cuda", 0)
     cases = [c for c in cs.MEASURE_CASES if c[0] in KEYS]
+    digests = {}
     if check:
         for case in cases:
             c = cs._measure_setup(*case, device)
             inputs = c["make"]()
-            cs._hold(f"{tree}: {case[0]} {c['at']}", c["kern"](*inputs), c["plain"](*inputs),
-                     cs.REL_TOL)
-            del c, inputs
-    out = {"tree": tree, "measured": cs.measure_kernels(device, cases)}
+            got = c["kern"](*inputs)
+            cs._hold(f"{tree}: {case[0]} {c['at']}", got, c["plain"](*inputs), cs.REL_TOL)
+            digests[f"{case[0]} {c['at']}"] = digest(got)
+            del c, inputs, got
+    out = {"tree": tree, "digests": digests, "measured": cs.measure_kernels(device, cases)}
     if smooth:
         out["smooth"] = list(cs.smooth_rows(cs.smooth_cases_3d(device)))
     return out
@@ -104,16 +120,27 @@ def main(argv=None) -> int:
         res = json.loads(next(ln for ln in proc.stdout.splitlines() if ln.startswith(TAG))[len(TAG):])
         runs.append({"arm": arm, **res})
     print(f"{'arm':7s} {'case':58s} {'dev warm':>9s} {'dev cold':>9s} {'call warm':>9s} "
-          f"{'call cold':>9s} {'bound':>7s} {'b/t cold dev':>12s}")
+          f"{'call cold':>9s} {'bound':>7s} {'b/t cold dev':>12s} {'lib dev cold':>12s}")
     for run in runs:
         for r in run["measured"]:
-            cd = r["cold_device_ms"]
+            cd, lib = r["cold_device_ms"], r["library_cold_device_ms"]
             print(f"{run['arm']:7s} {r['key'] + ' ' + r['at']:58.58s} {r['device_ms'] or 0:9.4f} "
                   f"{cd or 0:9.4f} {r['ms']:9.4f} {r['cold_ms']:9.4f} {r['bound_ms']:7.4f} "
-                  f"{(r['bound_ms'] / cd) if cd else 0:12.3f}")
+                  f"{(r['bound_ms'] / cd) if cd else 0:12.3f} "
+                  + ("none" if lib is None else f"{lib:12.4f}"))
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"device": smi, "runs": runs}, f, indent=1)
+    if args.check:
+        unequal = []
+        for case in runs[0]["digests"]:
+            seen = {run["arm"]: run["digests"].get(case) for run in runs}
+            print(f"digest {case}: {seen}")
+            if case.split()[0] in BITWISE and len(set(seen.values())) > 1:
+                unequal.append(case)
+        if unequal:
+            raise SystemExit(f"outputs differ between the arms, bit for bit: {unequal}")
+        print(f"every arm's {', '.join(BITWISE)} bit for bit the same")
     return 0
 
 
