@@ -8,7 +8,7 @@ MatrixFree + GMG, InnerTolerance 0, OuterTolerance 1e-4, Q1, f32, dt 0.1,
 3 timesteps:
 
 * P1: ``irk_batched``, 3D, q=4, refinement 7 (127^3 DoFs per stage) —
-  kernels K1, K2, K3, K4;
+  kernels K1 (the z march's Mix mode), K2, K3, K4;
 * P2: ``irk`` (sequential stage solves; json/irk.json's widths: 3D, q=5,
   refinement 7) — K5, K2, and K3/K4 on one stage at a time;
 * P3: ``irk_batched``, 2D, q=4, refinement 10 (1023^2 DoFs per stage) —
@@ -45,12 +45,14 @@ Phases; any failure exits non-zero:
 2. build: compiles ``dealii_spirk_tpu_torch/csrc`` with nvcc, one process
    per source, all started together;
 3. kernels: the 2D kernels of P3 on a smooth field at its finest level,
-   K3dg and K4 at P4's and K3 at P4's 127 level (``smooth_bias``): each
+   K3dg, K4, K5 and K9b at P4's, K3 at P4's 127 level and K1 at P1's
+   finest level (``smooth_bias``): each
    kernel's mean error against the f64 plain version within SMOOTH_BIAS
    times its f32 plain version's (a rounding error that follows the field
    moves the solution); then
    every kernel against its plain torch version on the card at
-   every shape the paths give it and at degrees 2-4 on small levels, to
+   every shape the paths give it and at degrees 2-4 on small levels (K1
+   also at q=8, on its route K2 + ms_mix_apply_split at p=4), to
    1e-5 max|ref| (K8, two chained f32 steps: 2e-5), with CUDA-event times
    of kernel, plain version and, where one PyTorch call computes the same
    function, that call (``library_ms``; held against the plain version,
@@ -63,9 +65,11 @@ Phases; any failure exits non-zero:
 3b. measurement (``measure_kernels``, MEASURE_CASES): K2 and K4-2D at P3's
    finest shape, K4-2D at m=255, K2 at the 3D shapes of P1, P2 and P4's
    maps, K4 at P1's and P4's finest levels and K9a at P6's and P7's slabs,
-   each beside its library call, and K3 at P1's finest level and P4's 127
-   level, K3dg at P4's finest level, K9c at P6's slab and K9d at P7's,
-   which have none: device time per launch from
+   K1 at P1's shape and m=31, K5 at P4's finest level and the shapes of P2
+   and P5, K9b at P6's and P7's slabs, each beside its library call, and
+   K3 at P1's finest level and P4's 127 level, K3dg at P4's finest level,
+   K9c at P6's slab, K9d at P7's and K1's split march at P1's shape, which
+   have none: device time per launch from
    ``torch.profiler``, time per call from CUDA events in turns (kernel,
    library, library, kernel), L2-warm and L2-cold; printed and kept in the
    kernels line (``device_ms``, ``cold_ms``, ``measured``), not a gate;
@@ -165,17 +169,18 @@ _SH = "dealii_spirk_tpu/ops/pallas/sharded.py"
 _CS = "dealii_spirk_tpu_torch/csrc/"
 KERNELS = {
     # LAUNCHES key: (C source, TPU kernel it replaces)
-    "ms_mix_apply": (_CS + "ms_mix_apply.cu", f"{_ST}:2879"),
+    "ms_mix_apply": (_CS + "march.cuh", f"{_ST}:2879"),
+    "ms_mix_apply_split": (_CS + "march.cuh", f"{_ST}:2879"),
     "stage_mix": (_CS + "stage_mix.cu", f"{_ST}:2749"),
     "cheb_iter": (_CS + "march.cuh", f"{_ST}:3196"),
     "cheb_iter_dg": (_CS + "march.cuh", f"{_ST}:2503"),
     "cheb_pair_dg": (_CS + "cheb_pair.cu", f"{_ST}:2215"),
     "stencil_apply": (_CS + "march.cuh", f"{_ST}:682"),
     "stencil_apply_2d": (_CS + "stencil_apply.cu", f"{_ST}:832"),
-    "mass_stiffness_apply": (_CS + "mass_stiffness_apply.cu", f"{_ST}:762"),
+    "mass_stiffness_apply": (_CS + "march.cuh", f"{_ST}:762"),
     "mass_stiffness_apply_2d": (_CS + "mass_stiffness_apply.cu", f"{_ST}:863"),
     "stencil_apply_halo": (_CS + "march.cuh", f"{_SH}:102"),
-    "mass_stiffness_apply_halo": (_CS + "mass_stiffness_apply.cu", f"{_SH}:136"),
+    "mass_stiffness_apply_halo": (_CS + "march.cuh", f"{_SH}:136"),
     "cheb_iter_halo": (_CS + "march.cuh", f"{_SH}:164"),
     "cheb_iter_dg_halo": (_CS + "march.cuh", f"{_SH}:187"),
 }
@@ -186,11 +191,12 @@ HALO = {  # halo kernel: its whole-field kernel
     "cheb_iter_dg_halo": "cheb_iter_dg",
 }
 # field passes each kernel must make (each input read once, each output
-# written once): K1 u -> out; K3 d, r, x, D^-1 -> r', d', x'; K3dg without
-# D^-1; K8 d, r, x -> r'', d'', x'' for two steps; K4 u -> out; K5 u -> M u,
-# K u.  K2 moves q_in + q_out fields.
+# written once): K1 u -> out; K1's route v, u -> out; K3 d, r, x, D^-1 ->
+# r', d', x'; K3dg without D^-1; K8 d, r, x -> r'', d'', x'' for two steps;
+# K4 u -> out; K5 u -> M u, K u.  K2 moves q_in + q_out fields.
 PASSES = {
     "ms_mix_apply": 2,
+    "ms_mix_apply_split": 3,
     "cheb_iter": 7,
     "cheb_iter_dg": 6,
     "cheb_pair_dg": 6,
@@ -199,8 +205,8 @@ PASSES = {
     "mass_stiffness_apply": 3,
     "mass_stiffness_apply_2d": 3,
 }
-K3D = ("ms_mix_apply", "stage_mix", "cheb_iter", "cheb_iter_dg", "stencil_apply",
-       "mass_stiffness_apply")
+K3D = ("ms_mix_apply", "ms_mix_apply_split", "stage_mix", "cheb_iter", "cheb_iter_dg",
+       "stencil_apply", "mass_stiffness_apply")
 K2D = ("stencil_apply_2d", "mass_stiffness_apply_2d", "stage_mix")
 VCYCLE = ("cheb_iter", "stencil_apply")
 # (dim, q, refinement, degree, kernels checked, kernels timed)
@@ -208,7 +214,8 @@ KERNEL_CASES = [
     (3, 4, 4, 1, K3D, ()),
     (3, 4, 5, 1, K3D, ()),
     (3, 4, 6, 1, K3D, ()),
-    (3, 4, 7, 1, K3D, ("ms_mix_apply", "stage_mix", "cheb_iter", "stencil_apply")),  # P1
+    (3, 4, 7, 1, K3D, ("ms_mix_apply", "ms_mix_apply_split", "stage_mix", "cheb_iter",
+                       "stencil_apply")),  # P1
     (3, 5, 7, 1, ("mass_stiffness_apply", "stage_mix"),
      ("mass_stiffness_apply", "stage_mix")),  # P2's vmult and mixes
     (3, 1, 4, 1, VCYCLE, ()),  # P2's one-stage V-cycle, on every smoothed level
@@ -235,6 +242,10 @@ KERNEL_CASES = [
     (3, 4, 5, 2, K3D, ()),
     (3, 4, 4, 3, K3D, ()),
     (3, 4, 4, 4, K3D, ()),
+    # K1 at QMAX stages: a tile height of 8 at p = 1; at p = 4 no tile holds
+    # the q rings and K1 takes the route K2 + ms_mix_apply_split
+    (3, 8, 5, 1, ("ms_mix_apply",), ()),
+    (3, 8, 3, 4, ("ms_mix_apply", "ms_mix_apply_split", "stage_mix"), ()),
     (2, 4, 6, 2, K2D, ()),
     (2, 4, 6, 3, K2D, ()),
     (2, 4, 6, 4, K2D, ()),
@@ -292,8 +303,11 @@ MIX_CASES = [
 # P1's and at P4's 255 level, both also at m=31 (P1's third level: launch
 # latency); K3dg at P4's 255 level (six lanes); the halo kernels on one
 # stage at the first of two slabs: K9c and K9a at P6's (64 planes of 127^2),
-# K9a and K9d at P7's (128 planes of 255^2).  K4 and K9a beside cuDNN's
-# grouped conv3d; no PyTorch call computes K3, K3dg, K9c or K9d.
+# K9a and K9d at P7's (128 planes of 255^2).  K1 at P1's shape and at m=31;
+# K5 at P4's 255 level (six lanes), P2's (q=5, m=127) and P5's (q=6, m=127)
+# shapes; K9b at P6's and P7's slabs.  K4, K5, K9a and K9b beside cuDNN's
+# grouped conv3d, K1 beside a dense conv3d (``ms_mix_conv``); no PyTorch call
+# computes K3, K3dg, K9c or K9d.
 MEASURE_CASES = [
     ("stage_mix", 2, 4, 4, 10),
     ("stencil_apply_2d", 2, 4, 4, 10),
@@ -313,12 +327,25 @@ MEASURE_CASES = [
     ("stencil_apply_halo", 3, 1, 1, 7),
     ("stencil_apply_halo", 3, 1, 1, 8),
     ("cheb_iter_dg_halo", 3, 1, 1, 8),
+    ("ms_mix_apply", 3, 4, 4, 7),
+    ("ms_mix_apply", 3, 4, 4, 5),
+    ("mass_stiffness_apply", 3, 6, 6, 8),
+    ("mass_stiffness_apply", 3, 5, 5, 7),
+    ("mass_stiffness_apply", 3, 6, 6, 7),
+    ("mass_stiffness_apply_halo", 3, 1, 1, 7),
+    ("mass_stiffness_apply_halo", 3, 1, 1, 8),
+    ("ms_mix_apply_split", 3, 4, 4, 7),
 ]
 # the device kernels of a LAUNCHES key, by name in the profiler (default the
 # key itself): the z march of each mode (csrc/march.cuh), or the kernels it
-# replaced (the tile kernels cheb_iter_kernel and stencil_apply_kernel, the
-# first z march cheb_dg_march), so that an older tree's arm is measured too
+# replaced (the tile kernels cheb_iter_kernel, stencil_apply_kernel,
+# ms_mix_kernel and mass_stiffness_kernel, the first z march cheb_dg_march),
+# so that an older tree's arm is measured too
 DEVICE_NAMES = {
+    "ms_mix_apply": ("Mix<", "ms_mix_kernel"),
+    "ms_mix_apply_split": ("MixSplit",),
+    "mass_stiffness_apply": ("MassStiff", "mass_stiffness_kernel"),
+    "mass_stiffness_apply_halo": ("MassStiff", "mass_stiffness_kernel"),
     "cheb_iter": ("ChebInvd", "cheb_iter_kernel"),
     "cheb_iter_halo": ("ChebInvd", "cheb_iter_kernel"),
     "stencil_apply": ("Apply>", "stencil_apply_kernel"),
@@ -372,7 +399,8 @@ def bound(name: str, q_in: int, q_out: int, points: int, p: int, dim: int,
     operations over the f32 peak.  Operations per output point of one
     stage, nb = 2p + 1 taps per axis: the shifted 3D apply 14 nb (z pass
     two sums, y pass C and D, x pass one sum of two products), K5 16 nb,
-    K1 K5's plus 2 q for the mix, the Chebyshev update 8 more, K3dg's
+    K1 K5's plus 2 q for the mix, K1's route 16 nb (three z sums, Apply's
+    y and x passes), the Chebyshev update 8 more, K3dg's
     diagonal 10 more, K8 two K3dg steps; 2D apply and K5-2D 10 nb; K2
     2 q_in.  A halo
     kernel is its whole-field kernel on the slab's ``points``, plus the
@@ -386,6 +414,7 @@ def bound(name: str, q_in: int, q_out: int, points: int, p: int, dim: int,
         nbytes = 4 * q_in * (PASSES[name] * points + halo_points)
         per_point = {
             "ms_mix_apply": 16 * nb + 2 * q_in,
+            "ms_mix_apply_split": 16 * nb,
             "cheb_iter": 14 * nb + 8,
             "cheb_iter_dg": 14 * nb + 18,
             "cheb_pair_dg": 2 * (14 * nb + 18),
@@ -407,33 +436,30 @@ def _outer(vs):
     return out
 
 
-def library_calls(ops, q: int, dim: int, a, b, u, mat, z_halo: bool = False) -> dict:
+def library_calls(ops, q: int, dim: int, a, b, u, mat, z_halo: bool = False,
+                  ainv=None) -> dict:
     """The one PyTorch call that computes each kernel's function, where
     there is one: K2 is ``mat @ W``; K4 and K5 at p = 1 a grouped
     convolution with a 3^dim tensor-product weight per stage (zero
-    padding; two output channels per stage for K5).  ``z_halo``: ``u`` is
-    a slab that carries its z halo, so the convolution does not pad z (a
-    slab away from the upper domain end: the Q1 rows are all alike).
-    Timed only."""
-    F = torch.nn.functional
+    padding; two output channels per stage for K5), K1 (``ainv`` given, tau
+    = ``b``) one dense conv3d (``ms_mix_conv``).  ``z_halo``: ``u`` is a
+    slab that carries its z halo, so the convolution does not pad z (a slab
+    away from the upper domain end: the Q1 rows are all alike).  Timed
+    only."""
     calls = {}
     if mat is not None:
         calls["stage_mix"] = lambda: (mat @ u.reshape(q, -1)).view(u.shape)
     if ops.p != 1:
         return calls
     pad = (0, 1, 1) if z_halo else 1
-    mass, stiff = _q1_weights(ops, dim)
-    conv = F.conv3d if dim == 3 else F.conv2d
-    ms_w = torch.stack([mass, stiff]).repeat(q, *([1] * dim))[:, None].contiguous()
     sfx = "" if dim == 3 else "_2d"
     shifted = shifted_conv(ops, q, dim, a, b, pad)
     calls["stencil_apply" + sfx] = lambda: shifted(u)
-
-    def ms():
-        out = conv(u[None], ms_w, padding=pad, groups=q)[0]
-        return out[0::2], out[1::2]
-
-    calls["mass_stiffness_apply" + sfx] = ms
+    ms = ms_conv(ops, q, dim, pad)
+    calls["mass_stiffness_apply" + sfx] = lambda: ms(u)
+    if ainv is not None and dim == 3:
+        mix = ms_mix_conv(ops, ainv, b)
+        calls["ms_mix_apply"] = lambda: mix(u)
     return calls
 
 
@@ -445,6 +471,32 @@ def _q1_weights(ops, dim: int):
     mass = _outer([wm] * dim)
     stiff = sum(_outer([wk if j == i else wm for j in range(dim)]) for i in range(dim))
     return mass, stiff
+
+
+def ms_conv(ops, q: int, dim: int, pad=1):
+    """(M u_i, K u_i) at p = 1 as one grouped convolution of u with two
+    output channels per stage."""
+    mass, stiff = _q1_weights(ops, dim)
+    conv = torch.nn.functional.conv3d if dim == 3 else torch.nn.functional.conv2d
+    w = torch.stack([mass, stiff]).repeat(q, *([1] * dim))[:, None].contiguous()
+
+    def call(u):
+        out = conv(u[None], w, padding=pad, groups=q)[0]
+        return out[0::2], out[1::2]
+
+    return call
+
+
+def ms_mix_conv(ops, ainv, tau):
+    """K1 at p = 1, sum_j Ainv[i, j] M u_j + tau K u_i, as one dense conv3d
+    with q input and q output channels: weight[i, j] = Ainv[i, j] M3 +
+    delta_ij tau K3 (M3, K3 the 3^3 stencils of ``_q1_weights``)."""
+    mass, stiff = _q1_weights(ops, 3)
+    ainv = ainv.to(dtype=mass.dtype, device=mass.device)
+    eye = torch.eye(ainv.shape[0], dtype=mass.dtype, device=mass.device)
+    w = (ainv[:, :, None, None, None] * mass
+         + (tau * eye)[:, :, None, None, None] * stiff).contiguous()
+    return lambda u: torch.nn.functional.conv3d(u[None], w, padding=1)[0]
 
 
 def shifted_conv(ops, q: int, dim: int, a, b, pad=1):
@@ -487,12 +539,14 @@ def kernel_cases(ops, q: int, dim: int, device, seed: int):
         cases += [
             ("ms_mix_apply", lambda: st.ms_mix_apply(ops, ainv, b, u),
              lambda: st.ms_mix_apply_ref(ops, ainv, b, u)),
+            ("ms_mix_apply_split", lambda: st.ms_mix_apply_split(ops, b, d, u),
+             lambda: st.ms_mix_apply_split_ref(ops, b, d, u)),
             ("cheb_iter", lambda: st.cheb_iter(ops, a, b, c1, c2, d, r, x, invd),
              lambda: st.cheb_iter_ref(ops, a, b, c1, c2, d, r, x, invd)),
             ("cheb_iter_dg", lambda: st.cheb_iter_dg(ops, a, b, c1, c2, d, r, x),
              lambda: st.cheb_iter_dg_ref(ops, a, b, c1, c2, d, r, x)),
         ]
-    return cases, library_calls(ops, q, dim, a, b, u, mat)
+    return cases, library_calls(ops, q, dim, a, b, u, mat, ainv=ainv if dim == 3 else None)
 
 
 def max_err(got, want) -> list[tuple[float, float]]:
@@ -892,6 +946,39 @@ def _measure_setup(key: str, dim: int, qi: int, qo: int, ref: int, device) -> di
             "at": at, "library": "grouped conv3d",
             "bound": bound(key, qi, qi, nz * m * m, 1, 3, halo_points=2 * halo * m * m),
         }
+    if HALO.get(key, key) == "mass_stiffness_apply":
+        kern = st.mass_stiffness_apply_halo if halo else st.mass_stiffness_apply
+        plain = st.mass_stiffness_apply_halo_ref if halo else st.mass_stiffness_apply_ref
+        return {
+            "kern": lambda u: kern(sops, u),
+            "plain": lambda u: plain(sops, u),
+            "lib": ms_conv(ops, qi, 3, (0, 1, 1) if halo else 1),
+            "make": lambda: (operand(),),
+            "bytes": 4 * qi * (3 * nz + 2 * halo) * m * m,
+            "at": at, "library": "grouped conv3d",
+            "bound": bound(key, qi, qi, nz * m * m, 1, 3, halo_points=2 * halo * m * m),
+        }
+    if key == "ms_mix_apply_split":
+        return {
+            "kern": lambda v, u: st.ms_mix_apply_split(ops, 0.1, v, u),
+            "plain": lambda v, u: st.ms_mix_apply_split_ref(ops, 0.1, v, u),
+            "lib": None,
+            "make": lambda: (operand(), operand()),
+            "bytes": 4 * qi * 3 * m**3,
+            "at": at, "library": "none",
+            "bound": bound(key, qi, qi, m**3, 1, 3),
+        }
+    if key == "ms_mix_apply":
+        ainv = torch.as_tensor(rng.uniform(-2, 2, (qi, qi)), dtype=torch.float32, device=device)
+        return {
+            "kern": lambda u: st.ms_mix_apply(ops, ainv, 0.1, u),
+            "plain": lambda u: st.ms_mix_apply_ref(ops, ainv, 0.1, u),
+            "lib": ms_mix_conv(ops, ainv, 0.1),
+            "make": lambda: (operand(),),
+            "bytes": 4 * qi * 2 * m**3,
+            "at": at, "library": "dense conv3d",
+            "bound": bound(key, qi, qi, m**3, 1, 3),
+        }
     # K3, K3dg and their slab forms: d, r, x (and K3's D^-1) in; r', d', x' out
     c1, c2 = vec(0.2, 0.9), vec(0.1, 0.5)
     fns = {
@@ -1032,8 +1119,9 @@ def smooth_cases_2d(device):
            lambda: st.stage_mix_ref(ainv.float(), u32), lambda: st.stage_mix_ref(ainv, u64))
 
 
-def _smooth_block(device, ref: int):
-    """P4's six V-cycle lanes on its level of refinement ``ref`` (Q1):
+def _smooth_block(device, ref: int, q: int | None = None):
+    """P4's six V-cycle lanes (or ``q`` lanes) on its level of refinement
+    ``ref`` (Q1):
     (o32, o64, at, (a, c1, c2) in f64, d, r, x) with d_i = (1 + i / 10)
     sin(pi x) sin(2 pi y) sin(pi z) + 0.3, x_i = (1 + i / 10) sin(2 pi x)
     sin(pi y) sin(3 pi z), and r_i = s x_i with s = max|(a_i M + b K) d_i|,
@@ -1043,7 +1131,8 @@ def _smooth_block(device, ref: int):
     from dealii_spirk_tpu_torch.ops.cuda import stencil as st
     from dealii_spirk_tpu_torch.ops.mass_laplace import level_ops
 
-    q, level = 2 * ((PATHS["P4"][1]["IRKStages"] + 1) // 2), make_level(ref, 1)
+    q = 2 * ((PATHS["P4"][1]["IRKStages"] + 1) // 2) if q is None else q
+    level = make_level(ref, 1)
     o32, o64 = (level_ops(level, dt, device) for dt in (torch.float32, torch.float64))
     m = o32.m
     z = torch.arange(1, m + 1, dtype=torch.float64, device=device) / (m + 1)
@@ -1081,10 +1170,14 @@ def _smooth_arms(name: str, at: str, arms: dict, outputs=(None,)):
 
 
 def smooth_cases_3d(device):
-    """The V-cycle's 3D kernels on P4's six lanes of smooth fields
-    (``_smooth_block``): K3dg's r', d', x' and K4's (a_i M + b K) d at the
-    255 level, K3's r', d', x' at the 127 level (``_smooth_cases_k3``)."""
+    """The 3D kernels on P4's six lanes of smooth fields (``_smooth_block``):
+    K3dg's r', d', x', K4's (a_i M + b K) d and K5's M d and K d at the 255
+    level, K9b's on the first of its two z slabs; K3's r', d', x' at the
+    127 level (``_smooth_cases_k3``); K1 at P1's finest level with P1's
+    A^-1 and tau (``_smooth_cases_k1``)."""
     from dealii_spirk_tpu_torch.ops.cuda import stencil as st
+    from dealii_spirk_tpu_torch.ops.mass_laplace import slab_ops
+    from dealii_spirk_tpu_torch.parallel.sharding import z_partition
 
     b, fine = SMOOTH_B, PATHS["P4"][1]["NRefinements"]
     o32, o64, at, (a, c1, c2), d, r, x = _smooth_block(device, fine)
@@ -1100,7 +1193,43 @@ def smooth_cases_3d(device):
         "plain": lambda: st.stencil_apply_ref(o32, a32, b, d),
         "exact": lambda: st.stencil_apply_ref(o64, a, b, d.double()),
     })
+    yield from _smooth_arms("mass_stiffness_apply", at, {
+        "kernel": lambda: st.mass_stiffness_apply(o32, d),
+        "plain": lambda: st.mass_stiffness_apply_ref(o32, d),
+        "exact": lambda: st.mass_stiffness_apply_ref(o64, d.double()),
+    }, ("M u", "K u"))
+    p, m = o32.p, o32.m
+    nzl = z_partition(m, 2)[0][1]
+    s32, s64 = slab_ops(o32, 0, nzl), slab_ops(o64, 0, nzl)
+    d_h = torch.cat([torch.zeros_like(d[:, :p]), d[:, : nzl + p]], dim=1)
+    yield from _smooth_arms("mass_stiffness_apply_halo", f"{at}, slab of {nzl} planes", {
+        "kernel": lambda: st.mass_stiffness_apply_halo(s32, d_h),
+        "plain": lambda: st.mass_stiffness_apply_halo_ref(s32, d_h),
+        "exact": lambda: st.mass_stiffness_apply_halo_ref(s64, d_h.double()),
+    }, ("M u", "K u"))
+    del d_h
     yield from _smooth_cases_k3(device, fine - 1)
+    yield from _smooth_cases_k1(device)
+
+
+def _smooth_cases_k1(device):
+    """K1 on P1's stages of smooth fields (``_smooth_block`` with P1's q) at
+    its finest level, with P1's A^-1 (Radau IIA, q = 4) and tau (its time
+    step)."""
+    from dealii_spirk_tpu_torch.ops.cuda import stencil as st
+    from dealii_spirk_tpu_torch.tables import irk_tables
+
+    cfg = PATHS["P1"][1]
+    q, tau = cfg["IRKStages"], cfg["TimeStepSize"]
+    o32, o64, at, _coefs, u, _r, _x = _smooth_block(device, cfg["NRefinements"], q)
+    del _r, _x
+    ainv = torch.as_tensor(irk_tables(q).A_inv, dtype=torch.float64, device=device)
+    a32 = ainv.float()
+    yield from _smooth_arms("ms_mix_apply", at, {
+        "kernel": lambda: st.ms_mix_apply(o32, a32, tau, u),
+        "plain": lambda: st.ms_mix_apply_ref(o32, a32, tau, u),
+        "exact": lambda: st.ms_mix_apply_ref(o64, ainv, tau, u.double()),
+    })
 
 
 def _smooth_cases_k3(device, ref: int):
@@ -1248,9 +1377,10 @@ def expected_launches(out) -> dict:
     application per iteration, one of each per restart; batched over the
     complex pairs, per iteration of the slowest live lane ("sweeps").
 
-    * ``irk(_batched)``: the vmult is K1 (3D irk_batched) or K5 + a K2
-      mix; an application is a K2 mix, the V-cycles (one stage-batched,
-      or one per stage for ``irk``) and a K2 mix;
+    * ``irk(_batched)``: the vmult is K1 (3D irk_batched; where no tile
+      holds its q rings, ``mix_tile``, K2 + ``ms_mix_apply_split``) or K5 +
+      a K2 mix; an application is a K2 mix, the V-cycles (one
+      stage-batched, or one per stage for ``irk``) and a K2 mix;
     * ``complex_irk(_batched)``: the vmult is K5 + a K2 mix of the pair
       blocks; the T^-1 and T maps are one K2 each per step; an
       application is one 2 n2-lane V-cycle (batched) or PRESB's two n2-lane
@@ -1282,8 +1412,10 @@ def expected_launches(out) -> dict:
         n_app += apps
         n_vcycle += s["n_inner"]
     if scheme.dim == 3 and not scheme.sequential:
-        want["ms_mix_apply"] = n_vmult
-        want["stage_mix"] = 2 * n_app
+        # K1, or where no tile holds its q rings its route: K2 and the split march
+        route = not st.mix_tile(scheme.q, scheme.fine.p)
+        want["ms_mix_apply_split" if route else "ms_mix_apply"] = n_vmult
+        want["stage_mix"] = 2 * n_app + (n_vmult if route else 0)
     else:
         want["mass_stiffness_apply" + ("" if scheme.dim == 3 else "_2d")] = n_vmult
         want["stage_mix"] = n_vmult + 2 * n_app

@@ -1,4 +1,4 @@
-// Shared tile machinery of the separable a*M + b*K stencil kernels.
+// Shared machinery of the separable a*M + b*K stencil kernels.
 //
 // Layout: a 3D stage block is (q, m, m, m) f32, contiguous, x fastest
 // (the 2D tiles are at the end of this file).  The
@@ -6,33 +6,23 @@
 // (k in [-p, p]), with zero weights for every coupling that leaves
 // [0, m) — the convention of dealii_spirk_tpu/ops/banded.py.
 //
-// The 3D tile kernels (K1 ms_mix_apply.cu and K5 mass_stiffness_apply.cu;
-// K8 cheb_pair.cu sizes its own tiles; K3, K4 and their slab forms march
-// over z instead, march.cuh): one block of NTHREADS threads owns a
-// TZ x TY x TX output tile of one stage.  It stages the input tile with a
-// p-point halo on every side in shared memory (zero outside the domain, loaded with masks — nothing
-// relies on wrap-around), then runs the three sum-factorised 1D passes
-// there (z, then y, then x), keeping every intermediate on chip.  The
-// per-row band weights of the tile are staged in shared memory too.
-//
-// The z extent of a launch is a ZSlab: a whole field (nz = m planes, no
-// halo, rows from 0), or one slab of a field that is split over z between
-// the slots of a (stage, space) mesh.  A slab's outputs are its own nz
-// planes, global rows z_off .. z_off + nz; its operand holds them between
-// `halo` planes of each neighbour (exact zeros at the domain ends), so it
-// has nz + 2 * halo planes.  Only the tile loader, the z band rows and the
-// output mask read the ZSlab: taps, weights and summation order per output
-// point are the same in both forms, so a slab's result equals the whole
-// field's bit for bit.
+// The 3D kernels march over z (march.cuh: K1, K3, K3dg, K4, K5 and the
+// slab forms K9a-K9d); K8 (cheb_pair.cu) sizes its own tiles.  The z extent
+// of a launch is a ZSlab: a whole field (nz = m planes, no halo, rows from
+// 0), or one slab of a field that is split over z between the slots of a
+// (stage, space) mesh.  A slab's outputs are its own nz planes, global rows
+// z_off .. z_off + nz; its operand holds them between `halo` planes of each
+// neighbour (exact zeros at the domain ends), so it has nz + 2 * halo
+// planes.  Only the plane loader, the z band rows and the output offsets
+// read the ZSlab: taps, weights and summation order per output point are
+// the same in both forms, so a slab's result equals the whole field's bit
+// for bit.
 #pragma once
 
 #include <cuda_runtime.h>
 
 namespace spirk {
 
-constexpr int TX = 32;
-constexpr int TY = 8;
-constexpr int TZ = 8;
 constexpr int NTHREADS = 256;
 constexpr int QMAX = 8;  // most stages a stage-coupled kernel holds
 
@@ -48,37 +38,6 @@ struct ZSlab {
 
 __host__ __device__ inline ZSlab whole_field(int m) { return ZSlab{m, 0, 0}; }
 
-template <int P>
-struct Tile {
-  static constexpr int NB = 2 * P + 1;
-  static constexpr int HX = TX + 2 * P;  // haloed extents
-  static constexpr int HY = TY + 2 * P;
-  static constexpr int HZ = TZ + 2 * P;
-  static constexpr int IN = HZ * HY * HX;  // haloed input tile
-  static constexpr int ZP = TZ * HY * HX;  // one field after the z pass
-  static constexpr int YP = TZ * TY * HX;  // one field after the y pass
-  static constexpr int BANDS = 2 * NB * (TZ + TY + TX);
-  static constexpr int PTS = TZ * TY * TX / NTHREADS;  // outputs per thread
-  // shared floats: input tile, two z-pass fields, two y-pass fields, bands
-  static constexpr int SMEM_FLOATS = IN + 2 * ZP + 2 * YP + BANDS;
-  static_assert(TZ * TY * TX % NTHREADS == 0, "tile must split evenly");
-};
-
-// Band weights of the tile's rows: [which(0=mass,1=stiff)][k][row] per
-// axis, zero for rows outside [0, m).
-template <int P>
-struct Bands {
-  float* z;  // 2 * NB * TZ
-  float* y;  // 2 * NB * TY
-  float* x;  // 2 * NB * TX
-  __device__ float zm(int k, int r) const { return z[k * TZ + r]; }
-  __device__ float zk(int k, int r) const { return z[(Tile<P>::NB + k) * TZ + r]; }
-  __device__ float ym(int k, int r) const { return y[k * TY + r]; }
-  __device__ float yk(int k, int r) const { return y[(Tile<P>::NB + k) * TY + r]; }
-  __device__ float xm(int k, int r) const { return x[k * TX + r]; }
-  __device__ float xk(int k, int r) const { return x[(Tile<P>::NB + k) * TX + r]; }
-};
-
 template <int T>
 __device__ inline void load_band_rows(float* dst, const float* __restrict__ mband,
                                       const float* __restrict__ kband, int nb, int m,
@@ -90,105 +49,6 @@ __device__ inline void load_band_rows(float* dst, const float* __restrict__ mban
     int g = r0 + r;
     const float* band = which ? kband : mband;
     dst[i] = (g < m) ? band[k * m + g] : 0.f;
-  }
-}
-
-template <int P>
-__device__ inline Bands<P> load_bands(float* smem_bands, const float* __restrict__ mband,
-                                      const float* __restrict__ kband, int m, ZSlab zs,
-                                      int z0, int y0, int x0) {
-  constexpr int NB = Tile<P>::NB;
-  Bands<P> b{smem_bands, smem_bands + 2 * NB * TZ, smem_bands + 2 * NB * (TZ + TY)};
-  load_band_rows<TZ>(b.z, mband, kband, NB, m, zs.z_off + z0);
-  load_band_rows<TY>(b.y, mband, kband, NB, m, y0);
-  load_band_rows<TX>(b.x, mband, kband, NB, m, x0);
-  return b;
-}
-
-// Haloed input tile of one stage field, zero outside the domain; in z it
-// reads the operand's planes (a slab's start `halo` planes below its rows).
-template <int P>
-__device__ inline void load_tile(float* in, const float* __restrict__ u, int m, ZSlab zs,
-                                 int z0, int y0, int x0) {
-  using T = Tile<P>;
-  const int nz_in = zs.nz + 2 * zs.halo;
-  for (int i = threadIdx.x; i < T::IN; i += NTHREADS) {
-    int lx = i % T::HX;
-    int t = i / T::HX;
-    int ly = t % T::HY;
-    int lz = t / T::HY;
-    int gx = x0 + lx - P, gy = y0 + ly - P, gz = z0 + lz - P + zs.halo;
-    float v = 0.f;
-    if (gx >= 0 && gx < m && gy >= 0 && gy < m && gz >= 0 && gz < nz_in)
-      v = __ldg(u + ((long long)gz * m + gy) * m + gx);
-    in[i] = v;
-  }
-}
-
-// Decompose the k-th output point of this thread into tile coordinates.
-__device__ inline void out_point(int s, int& lz, int& ly, int& lx) {
-  int i = threadIdx.x + s * NTHREADS;
-  lx = i % TX;
-  int t = i / TX;
-  ly = t % TY;
-  lz = t / TY;
-}
-
-// M u and K u of the tile's stage from shared 1D intermediates: z pass
-// Zm = Mz u, Zk = Kz u; y pass Cm = My Zm, Ck = My Zk + Ky Zm (written to
-// Cm, Ck); the caller finishes with the x pass (mass_stiff_x):
-// M u = Mx Cm, K u = Mx Ck + Kx Cm.
-template <int P>
-__device__ inline void mass_stiff_zy(const float* in, float* Zm, float* Zk, float* Cm,
-                                     float* Ck, const Bands<P>& bd) {
-  using T = Tile<P>;
-  for (int i = threadIdx.x; i < T::ZP; i += NTHREADS) {
-    int lx = i % T::HX;
-    int t = i / T::HX;
-    int ly = t % T::HY;
-    int lz = t / T::HY;
-    float zm = 0.f, zk = 0.f;
-#pragma unroll
-    for (int k = 0; k < T::NB; ++k) {
-      float v = in[((lz + k) * T::HY + ly) * T::HX + lx];
-      zm += bd.zm(k, lz) * v;
-      zk += bd.zk(k, lz) * v;
-    }
-    Zm[i] = zm;
-    Zk[i] = zk;
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < T::YP; i += NTHREADS) {
-    int lx = i % T::HX;
-    int t = i / T::HX;
-    int ly = t % TY;
-    int lz = t / TY;
-    float cm = 0.f, ck = 0.f;
-#pragma unroll
-    for (int k = 0; k < T::NB; ++k) {
-      int j = (lz * T::HY + ly + k) * T::HX + lx;
-      float wm = bd.ym(k, ly), wk = bd.yk(k, ly);
-      cm += wm * Zm[j];
-      ck += wm * Zk[j] + wk * Zm[j];
-    }
-    Cm[i] = cm;
-    Ck[i] = ck;
-  }
-  __syncthreads();
-}
-
-template <int P>
-__device__ inline void mass_stiff_x(const float* Cm, const float* Ck, const Bands<P>& bd,
-                                    int lz, int ly, int lx, float& mu, float& ku) {
-  using T = Tile<P>;
-  int base = (lz * TY + ly) * T::HX + lx;
-  mu = 0.f;
-  ku = 0.f;
-#pragma unroll
-  for (int k = 0; k < T::NB; ++k) {
-    float wm = bd.xm(k, lx), wk = bd.xk(k, lx);
-    mu += wm * Cm[base + k];
-    ku += wm * Ck[base + k] + wk * Cm[base + k];
   }
 }
 
@@ -310,13 +170,6 @@ inline cudaError_t allow_smem(K kernel, int bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
-
-// blocks of a launch over nz output planes of q stages
-inline dim3 tile_grid(int m, int nz, int q) {
-  return dim3((m + TX - 1) / TX, (m + TY - 1) / TY, ((nz + TZ - 1) / TZ) * q);
-}
-
-inline dim3 tile_grid(int m, int q) { return tile_grid(m, m, q); }
 
 inline dim3 tile_grid2(int m, int q) {
   return dim3((m + TX2 - 1) / TX2, (m + TY2 - 1) / TY2, q);

@@ -1,111 +1,73 @@
 // K1: out_i = sum_j Ainv[i, j] (M u_j) + tau (K u_i) for all q stages —
-// the outer GMRES vmult of irk_batched.
+// the outer GMRES vmult of 3D irk_batched.
 //
 // Replaces the Pallas kernel of fused_ms_mix_apply_canon
 // (dealii_spirk_tpu/ops/pallas/stencil.py,
-// _make_kernel_ms_mix_3d_canon_yb).  One block owns a spatial tile for
-// ALL stages: it walks the stages j, stages u_j's haloed tile once,
-// computes M u_j and K u_j there (z: Zm, Zk; y: Cm = My Zm,
-// Ck = My Zk + Ky Zm; x: M u = Mx Cm, K u = Mx Ck + Kx Cm) and adds them
-// into q accumulators per output point held in registers.  Each field
-// element is read once and written once.
+// _make_kernel_ms_mix_3d_canon_yb), whose point it keeps: u is read once
+// and out written once (the unfused alternative, K5 then K2 and an add,
+// moves about 3x the bytes).
 //
-// Bound on the H100: by design DRAM (2 field passes); the unfused
-// alternative (M and K applies, then a q x q mix) moves about 3x the
-// bytes.  Measured 12% of the DRAM roof at q=4, m=127 (PERF.md): two
-// stencils per stage in shared memory and 128 registers per thread (2
-// blocks per SM) bind this simple version.
-#include "common.cuh"
+// spirk_ms_mix_apply is the z march's Mix<TY, QA> mode (march.cuh): one block
+// owns a TY x 64 (y, x) tile column of EVERY stage and marches over a chunk
+// of z planes, with a cp.async ring of 2p + 2 haloed planes per stage.  Per
+// plane and input stage j it runs K5's passes (MassStiff: z E = Kz u_j,
+// F = Mz u_j; y C = My E + Ky F, D = My F; x K u_j = Mx C + Kx D and
+// M u_j = Mx D, mass and stiffness taps summed apart) and adds
+// Ainv[i, j] M u_j, and tau_j K u_j to i = j, into q sums per output point
+// held in registers (QA = 4 where q <= 4, else QMAX); the sums are stored
+// once every stage is in.  The q rings set the block's shared memory, so the
+// tile height TY (16 or 8) is the launch plan's choice per (p, q)
+// (ops/cuda/stencil.py::mix_tile); QMAX sums live in registers only on the
+// 8-row tile (2 output points per thread), so above 4 stages TY is 8.
+//
+// Where no tile height fits the q rings (p = 3 with q >= 7, p = 4 with
+// q >= 5), the plan routes K1 through K2 (stage_mix.cu: v = Ainv u) and
+// spirk_ms_mix_apply_split, the march's MixSplit mode: a block marches one
+// stage with two rings, v_i and u_i; z pass E = Mz v_i + tau Kz u_i,
+// F = tau Mz u_i, then Apply's y and x passes give out_i = M v_i + tau K u_i.
+//
+// Bound on the H100: DRAM (Mix 2 field passes per point, MixSplit 3, against
+// about 60 + 2q flops per point at p = 1).
+#include "march.cuh"
 
 namespace spirk {
 
-// mw: (q + 1, q) row-major; rows 0..q-1 = Ainv, row q = tau per stage.
-template <int P>
-__global__ void __launch_bounds__(NTHREADS)
-ms_mix_kernel(const float* __restrict__ u, float* __restrict__ out,
-              const float* __restrict__ mband, const float* __restrict__ kband,
-              const float* __restrict__ mw, int q, int m) {
-  using T = Tile<P>;
-  extern __shared__ float smem[];
-  float* in = smem;
-  float* Zm = in + T::IN;
-  float* Zk = Zm + T::ZP;
-  float* Cm = Zk + T::ZP;
-  float* Ck = Cm + T::YP;
-  float* bands = Ck + T::YP;
-  __shared__ float mws[(QMAX + 1) * QMAX];
-
-  const int z0 = blockIdx.z * TZ, y0 = blockIdx.y * TY, x0 = blockIdx.x * TX;
-  const long long n = (long long)m * m * m;
-  for (int i = threadIdx.x; i < (q + 1) * q; i += NTHREADS) mws[i] = mw[i];
-  Bands<P> bd = load_bands<P>(bands, mband, kband, m, whole_field(m), z0, y0, x0);
-
-  float acc[QMAX][T::PTS];
-#pragma unroll
-  for (int i = 0; i < QMAX; ++i)
-#pragma unroll
-    for (int s = 0; s < T::PTS; ++s) acc[i][s] = 0.f;
-
-  for (int j = 0; j < q; ++j) {
-    load_tile<P>(in, u + j * n, m, whole_field(m), z0, y0, x0);
-    __syncthreads();
-    mass_stiff_zy<P>(in, Zm, Zk, Cm, Ck, bd);
-    // coefficients of stage j: Ainv[i, j] on M u_j for every i, tau on
-    // K u_j for i == j (constant register indices after unrolling)
-    float cM[QMAX], cK[QMAX];
-#pragma unroll
-    for (int i = 0; i < QMAX; ++i) {
-      cM[i] = (i < q) ? mws[i * q + j] : 0.f;
-      cK[i] = (i == j) ? mws[q * q + j] : 0.f;
-    }
-#pragma unroll
-    for (int s = 0; s < T::PTS; ++s) {
-      int lz, ly, lx;
-      out_point(s, lz, ly, lx);
-      float mu, ku;
-      mass_stiff_x<P>(Cm, Ck, bd, lz, ly, lx, mu, ku);
-#pragma unroll
-      for (int i = 0; i < QMAX; ++i) acc[i][s] += cM[i] * mu + cK[i] * ku;
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int s = 0; s < T::PTS; ++s) {
-    int lz, ly, lx;
-    out_point(s, lz, ly, lx);
-    int gz = z0 + lz, gy = y0 + ly, gx = x0 + lx;
-    if (gz < m && gy < m && gx < m) {
-      long long g = ((long long)gz * m + gy) * m + gx;
-#pragma unroll
-      for (int i = 0; i < QMAX; ++i)
-        if (i < q) out[i * n + g] = acc[i][s];
-    }
-  }
-}
-
-template <int P>
-cudaError_t launch_ms_mix(const float* u, float* out, const float* mband, const float* kband,
-                          const float* mw, int q, int m, cudaStream_t stream) {
-  const int bytes = Tile<P>::SMEM_FLOATS * sizeof(float);
-  cudaError_t err = allow_smem(ms_mix_kernel<P>, bytes);
-  if (err != cudaSuccess) return err;
-  ms_mix_kernel<P><<<tile_grid(m, 1), NTHREADS, bytes, stream>>>(u, out, mband, kband, mw, q, m);
-  return cudaGetLastError();
+MarchArgs mix_args(const float* d, float* out, const float* mband, const float* kband, int m,
+                   int chunk) {
+  MarchArgs g{};
+  g.d = d;
+  g.out = out;
+  g.mband = mband;
+  g.kband = kband;
+  g.m = m;
+  g.chunk = chunk;
+  g.zs = whole_field(m);
+  return g;
 }
 
 }  // namespace spirk
 
+// mw: (q + 1, q) row-major, rows 0..q-1 Ainv, row q tau per stage; ty: the
+// tile height (16 or 8); chunk: z planes per block, 1..MZC
 extern "C" int spirk_ms_mix_apply(const float* u, float* out, const float* mband,
-                                  const float* kband, const float* mw, int q, int m, int p,
-                                  void* stream) {
+                                  const float* kband, const float* mw, int q, int m, int ty,
+                                  int chunk, int p, void* stream) {
   if (q < 1 || q > spirk::QMAX) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (p) {
-    case 1: return spirk::launch_ms_mix<1>(u, out, mband, kband, mw, q, m, s);
-    case 2: return spirk::launch_ms_mix<2>(u, out, mband, kband, mw, q, m, s);
-    case 3: return spirk::launch_ms_mix<3>(u, out, mband, kband, mw, q, m, s);
-    case 4: return spirk::launch_ms_mix<4>(u, out, mband, kband, mw, q, m, s);
-    default: return cudaErrorInvalidValue;
-  }
+  spirk::MarchArgs g = spirk::mix_args(u, out, mband, kband, m, chunk);
+  g.mw = mw;
+  // the sums a thread keeps per output point: 4, or QMAX on the 8-row tile
+  if (q <= 4 && ty == 16) return spirk::march_entry<spirk::Mix<16, 4>>(g, q, p, stream);
+  if (q <= 4 && ty == 8) return spirk::march_entry<spirk::Mix<8, 4>>(g, q, p, stream);
+  if (ty == 8) return spirk::march_entry<spirk::Mix<8, spirk::QMAX>>(g, q, p, stream);
+  return cudaErrorInvalidValue;
+}
+
+// out_i = M v_i + tau K u_i; v, u, out: (q, m, m, m)
+extern "C" int spirk_ms_mix_apply_split(const float* v, const float* u, float* out,
+                                        const float* mband, const float* kband, float tau,
+                                        int q, int m, int chunk, int p, void* stream) {
+  spirk::MarchArgs g = spirk::mix_args(v, out, mband, kband, m, chunk);
+  g.u = u;
+  g.b = tau;
+  return spirk::march_entry<spirk::MixSplit>(g, q, p, stream);
 }

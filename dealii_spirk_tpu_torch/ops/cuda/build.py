@@ -46,15 +46,18 @@ SIGNATURES = {
     "spirk_cheb_iter_dg_halo": (_P,) * 11 + (_F, _P, _P) + (_I,) * 6 + (_P,),
     # K4-2D: u, out, mband, kband, a (q,), b, q, m, p, stream
     "spirk_stencil_apply_2d": (_P, _P, _P, _P, _P, _F, _I, _I, _I, _P),
-    # u, mu, ku, mband, kband, q, m, p, stream
-    "spirk_mass_stiffness_apply": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # K5 (the march): u, mu, ku, mband, kband, q, m, chunk, p, stream
+    "spirk_mass_stiffness_apply": (_P,) * 5 + (_I,) * 4 + (_P,),
+    # K5-2D: u, mu, ku, mband, kband, q, m, p, stream
     "spirk_mass_stiffness_apply_2d": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # K9b: ..., q, m, nzl, z_off, p, stream
-    "spirk_mass_stiffness_apply_halo": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # K9b: ..., q, m, nzl, z_off, chunk, p, stream
+    "spirk_mass_stiffness_apply_halo": (_P,) * 5 + (_I,) * 6 + (_P,),
     # K8: d, r, x, mdiag, kdiag, r_out, d_out, x_out, mband, kband, w (q, 6), q, m, p, stream
     "spirk_cheb_pair_dg": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # u, out, mband, kband, mw, q, m, p, stream
-    "spirk_ms_mix_apply": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # K1 (the march): u, out, mband, kband, mw, q, m, tile height, chunk, p, stream
+    "spirk_ms_mix_apply": (_P,) * 5 + (_I,) * 5 + (_P,),
+    # K1's route: v, u, out, mband, kband, tau, q, m, chunk, p, stream
+    "spirk_ms_mix_apply_split": (_P,) * 5 + (_F,) + (_I,) * 4 + (_P,),
     # W, out, mat, q_out, q_in, n, stream
     "spirk_stage_mix": (_P, _P, _P, _I, _I, ctypes.c_longlong, _P),
 }

@@ -19,16 +19,18 @@ All are bound by device memory at p=1 on the H100 (3.35 TB/s against
 against under 100 flops per point.  Each keeps every 1D intermediate in
 shared memory or registers so that it reads each input about once from
 DRAM (halo re-reads come mostly from L2) and writes each output once.  The
-V-cycle's 3D kernels (K4, K3, K3dg and their slab forms) are one z march
-(``csrc/march.cuh``): a block marches over a chunk of z planes of one
-stage's (y, x) tile, ``march_plan`` picks the chunk per launch.
+3D kernels but K8 (K1, K3, K3dg, K4, K5 and their slab forms) are one z
+march (``csrc/march.cuh``): a block marches over a chunk of z planes of one
+stage's (y, x) tile (K1: of every stage's), ``march_plan`` picks the chunk
+per launch and ``mix_tile`` K1's tile height.
 
 Wrappers and their ``LAUNCHES`` keys (one per CUDA entry point; a 2D
 block counts under ``<key>_2d``), with the Pallas kernels they replace
 (``dealii_spirk_tpu/ops/pallas/stencil.py``):
 
 * K1 ``ms_mix_apply`` — ``fused_ms_mix_apply_canon``: the 3D
-  ``irk_batched`` outer vmult in one pass;
+  ``irk_batched`` outer vmult in one pass; where its q rings fit no block,
+  K2 and ``ms_mix_apply_split`` (out_i = M v_i + tau K u_i, v = Ainv u);
 * K2 ``stage_mix`` — ``stage_mix_canon``: the T / T^-1 basis changes and
   the A^-1 mix of K5's ``M u``;
 * K3 ``cheb_iter`` — ``fused_cheb_iter_canon``: one 3D Chebyshev step;
@@ -61,24 +63,37 @@ import torch
 
 from ..mass_laplace import (
     LevelOps,
+    apply_mass,
     apply_mass_stiffness_batched,
     apply_shifted_batched,
+    apply_stiffness,
     per_stage,
 )
 
 QMAX = 8  # most stages the stage-coupled kernels hold (csrc/common.cuh)
-# The z march (csrc/march.cuh: K4, K3, K3dg and their slab forms K9a, K9c,
-# K9d): the (y, x) output tile of a block, the most planes one block
+# The z march (csrc/march.cuh: K1, K3, K3dg, K4, K5 and the slab forms
+# K9a-K9d): the (y, x) output tile of a block, the most planes one block
 # marches (csrc MZC; at P4's shape chunks of 16 planes ran faster than
 # chunks of 32 or 64 on the H100, PERF.md), and the blocks a launch should
 # have at least: two per SM of the H100 (132 SMs)
 MARCH_TILE = (16, 64)
 MARCH_MAX_CHUNK = 16
 MARCH_MIN_BLOCKS = 2 * 132
+# K1's blocks each march every stage, so one per SM suffices: at P1's shape
+# chunks of 8 planes (256 blocks) ran 7% faster than chunks of 4 (512) on
+# the H100 (PERF.md)
+MIX_MIN_BLOCKS = 132
+# K1's tile heights (csrc Mix<TY>), tallest first, and the H100's shared
+# memory: the most one block may take, and an SM's (1 KB of it reserved per
+# block)
+MIX_TILES = (16, 8)
+BLOCK_SMEM_BYTES = 232448
+SM_SMEM_BYTES = 233472
 
 # one count per CUDA entry point (csrc/, build.SIGNATURES without "spirk_")
 LAUNCHES = {
     "ms_mix_apply": 0,
+    "ms_mix_apply_split": 0,
     "stage_mix": 0,
     "cheb_iter": 0,
     "cheb_iter_dg": 0,
@@ -202,6 +217,12 @@ def ms_mix_apply_ref(ops: LevelOps, Ainv: torch.Tensor, tau, u: torch.Tensor):
     return stage_mix_ref(Ainv, MW) + tau * KW
 
 
+def ms_mix_apply_split_ref(ops: LevelOps, tau, v: torch.Tensor, u: torch.Tensor):
+    """out_i = M v_i + tau (K u_i): K1 with v = Ainv u mixed beforehand."""
+    dim = u.ndim - 1
+    return apply_mass(ops, v, dim) + tau * apply_stiffness(ops, u, dim)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -268,18 +289,50 @@ def _stage_coefs(a, q: int, device) -> torch.Tensor:
     return a.to(device=device, dtype=torch.float32).contiguous()
 
 
-def march_plan(q: int, nz: int, m: int) -> tuple[int, tuple[int, int, int]]:
+def march_plan(q: int, nz: int, m: int, ty: int = MARCH_TILE[0],
+               per_stage: bool = True) -> tuple[int, tuple[int, int, int]]:
     """(chunk, grid) of a z-march launch over ``nz`` output planes of ``q``
-    stages of m x m: the most planes a block marches, a power of two up to
-    MARCH_MAX_CHUNK, the largest that leaves MARCH_MIN_BLOCKS blocks (1
-    where even that does not), and the launch grid the kernel takes from
-    it (x tiles, y tiles, q * chunks; ``march_planes``)."""
-    ty, tx = MARCH_TILE
+    stages of m x m on ``ty`` x 64 tiles, a block per stage (K1's Mix
+    mode, ``per_stage`` False: a block for every stage): the most planes a
+    block marches, a power of two up to MARCH_MAX_CHUNK, the largest that
+    leaves MARCH_MIN_BLOCKS blocks (Mix: MIX_MIN_BLOCKS; 1 where even that
+    does not), and the launch grid the kernel takes from it (x tiles, y
+    tiles, chunks, times q per stage; ``march_planes``)."""
+    tx = MARCH_TILE[1]
     tiles = -(-m // tx), -(-m // ty)
+    lanes = q if per_stage else 1
+    least = MARCH_MIN_BLOCKS if per_stage else MIX_MIN_BLOCKS
     chunk = MARCH_MAX_CHUNK
-    while chunk > 1 and tiles[0] * tiles[1] * q * -(-nz // chunk) < MARCH_MIN_BLOCKS:
+    while chunk > 1 and tiles[0] * tiles[1] * lanes * -(-nz // chunk) < least:
         chunk //= 2
-    return chunk, (tiles[0], tiles[1], q * -(-nz // chunk))
+    return chunk, (tiles[0], tiles[1], lanes * -(-nz // chunk))
+
+
+def march_smem_bytes(p: int, ty: int, rings: int) -> int:
+    """Shared memory of a z-march block without per-point fields (csrc
+    March<P, Mode>): ``rings`` rings of 2p + 2 haloed planes, the z-pass
+    planes E and F, the y-pass fields C and D, the z and y band rows."""
+    nb, hx, hy = 2 * p + 1, MARCH_TILE[1] + 2 * p, ty + 2 * p
+    plane = hy * hx
+    floats = (rings * (2 * p + 2) * plane + 2 * plane + 2 * ty * hx
+              + 2 * nb * MARCH_MAX_CHUNK + 2 * nb * ty)
+    return 4 * floats
+
+
+def mix_tile(q: int, p: int) -> int:
+    """K1's tile height at degree ``p`` with ``q`` stages: the tallest of
+    MIX_TILES whose block (a ring per stage) lets two blocks share an SM,
+    else the tallest that fits one block, else 0: no block holds the q
+    rings (p = 3 with q >= 7, p = 4 with q >= 5), and K1 takes the route
+    K2 + ``ms_mix_apply_split``.  Above 4 stages a thread keeps QMAX sums
+    per output point, and only the 8-row tile (2 points) keeps them in
+    registers (csrc/ms_mix_apply.cu)."""
+    for per_sm in (2, 1):
+        for ty in MIX_TILES if q <= 4 else MIX_TILES[1:]:
+            nbytes = march_smem_bytes(p, ty, q)
+            if nbytes <= BLOCK_SMEM_BYTES and per_sm * (nbytes + 1024) <= SM_SMEM_BYTES:
+                return ty
+    return 0
 
 
 def march_planes(nz: int, chunk: int, bz: int) -> tuple[int, int, int]:
@@ -357,13 +410,15 @@ def stencil_apply(ops: LevelOps, a, b, u: torch.Tensor) -> torch.Tensor:
 
 
 def mass_stiffness_apply(ops: LevelOps, u: torch.Tensor):
-    """K5 (3D) / K5-2D: (M u_i, K u_i) per stage from one read of u."""
+    """K5 (3D, the z march) / K5-2D: (M u_i, K u_i) per stage from one read
+    of u."""
     if _on_cpu(u, ops.mass_band):
         return mass_stiffness_apply_ref(ops, u)
     q, m, p = _check_block(ops, u, "u")
     mu, ku = torch.empty_like(u), torch.empty_like(u)
     name = _entry("mass_stiffness_apply", u)
-    _launch("spirk_" + name, u, mu, ku, ops.mass_band, ops.stiff_band, q, m, p)
+    plan = (march_plan(q, m, m)[0],) if u.ndim == 4 else ()
+    _launch("spirk_" + name, u, mu, ku, ops.mass_band, ops.stiff_band, q, m, *plan, p)
     LAUNCHES[name] += 1
     return mu, ku
 
@@ -464,7 +519,7 @@ def mass_stiffness_apply_halo(ops: LevelOps, u_h: torch.Tensor):
     mu = torch.empty((q, nzl, m, m), dtype=u_h.dtype, device=u_h.device)
     ku = torch.empty_like(mu)
     _launch("spirk_mass_stiffness_apply_halo", u_h, mu, ku, ops.mass_band, ops.stiff_band,
-            q, m, nzl, ops.z_off, p)
+            q, m, nzl, ops.z_off, march_plan(q, nzl, m)[0], p)
     LAUNCHES["mass_stiffness_apply_halo"] += 1
     return mu, ku
 
@@ -503,7 +558,9 @@ def cheb_iter_dg_halo(ops: LevelOps, a, b, c1, c2, d_h, r, x):
 
 
 def ms_mix_apply(ops: LevelOps, Ainv: torch.Tensor, tau, u: torch.Tensor) -> torch.Tensor:
-    """K1: out_i = sum_j Ainv[i, j] (M u_j) + tau (K u_i); q <= 8, 3D."""
+    """K1: out_i = sum_j Ainv[i, j] (M u_j) + tau (K u_i); q <= 8, 3D.  One
+    launch of the z march's Mix mode on ``mix_tile``'s tile; where no tile
+    holds the q rings, K2 (v = Ainv u) and ``ms_mix_apply_split``."""
     if _on_cpu(u, Ainv, ops.mass_band):
         return ms_mix_apply_ref(ops, Ainv, tau, u)
     if u.ndim != 4:
@@ -511,11 +568,32 @@ def ms_mix_apply(ops: LevelOps, Ainv: torch.Tensor, tau, u: torch.Tensor) -> tor
     q, m, p = _check_block(ops, u, "u")
     if q > QMAX or tuple(Ainv.shape) != (q, q):
         raise ValueError(f"ms_mix_apply takes q <= {QMAX} and a (q, q) Ainv")
+    ty = mix_tile(q, p)
+    if not ty:
+        return ms_mix_apply_split(ops, tau, stage_mix(Ainv, u), u)
     tau_row = torch.full((1, q), float(tau), dtype=torch.float32, device=u.device)
     mw = torch.cat([Ainv.to(torch.float32), tau_row], dim=0).contiguous()
     out = torch.empty_like(u)
-    _launch("spirk_ms_mix_apply", u, out, ops.mass_band, ops.stiff_band, mw, q, m, p)
+    chunk, _grid = march_plan(q, m, m, ty, per_stage=False)
+    _launch("spirk_ms_mix_apply", u, out, ops.mass_band, ops.stiff_band, mw, q, m, ty, chunk, p)
     LAUNCHES["ms_mix_apply"] += 1
+    return out
+
+
+def ms_mix_apply_split(ops: LevelOps, tau, v: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """K1's route where no tile holds its q rings (``mix_tile``): out_i =
+    M v_i + tau (K u_i), v = Ainv u from K2; the z march's MixSplit mode, a
+    block per stage with a ring of v_i and one of u_i; 3D."""
+    if _on_cpu(v, u, ops.mass_band):
+        return ms_mix_apply_split_ref(ops, tau, v, u)
+    if u.ndim != 4:
+        raise ValueError("ms_mix_apply_split takes 3D stage blocks (q, m, m, m)")
+    q, m, p = _check_block(ops, u, "u")
+    _check_field(v, u.shape, "v")
+    out = torch.empty_like(u)
+    _launch("spirk_ms_mix_apply_split", v, u, out, ops.mass_band, ops.stiff_band, float(tau),
+            q, m, march_plan(q, m, m)[0], p)
+    LAUNCHES["ms_mix_apply_split"] += 1
     return out
 
 

@@ -5,7 +5,7 @@ device: ``chip_smoke.py``'s measurement phase (and, with ``--smooth``, its
 
     python3 scripts/torch_kernel_ab.py --parent DIR [--arm-tree NAME=DIR ...]
                                        [--order parent,tree,tree,parent] [--smooth] [--check]
-                                       [--out FILE]
+                                       [--keys K,...] [--out FILE]
 
 ``DIR`` holds another commit's tree (for example ``git archive`` of the
 parent commit unpacked into a directory that ``.gitignore`` lists); "tree"
@@ -13,13 +13,15 @@ is this checkout; ``--arm-tree`` names further trees for ``--order``.
 Each arm runs in a process of its own that imports
 ``dealii_spirk_tpu_torch`` from its tree (so it builds and launches that
 tree's kernels) and this checkout's ``chip_smoke.py``, and measures the
-MEASURE_CASES of KEYS (K3, K4, K9c, K9a, K3dg, K9d):
+MEASURE_CASES of KEYS (K3, K4, K9c, K9a, K3dg, K9d, K1, K1's split route,
+K5, K9b, or those of ``--keys``; a key that an arm's package lacks is left
+out of that arm):
 device time per launch from ``torch.profiler``, time per call from CUDA
 events, L2-warm and L2-cold, over ``chip_smoke.TURNS`` turns, beside the
 bound; ``--check`` holds each kernel to its plain version at the measured
 shape first and takes a digest of its outputs' bytes, and the arms'
-digests of BITWISE (K3dg, K9d) must be equal, as ``torch.equal`` would
-find them; ``--smooth`` adds the 3D smooth-field rows.  The arms'
+digests of BITWISE (K3, K4, K9c, K9a, K3dg, K9d) must be equal, as
+``torch.equal`` would find them; ``--smooth`` adds the 3D smooth-field rows.  The arms'
 wrappers must take the same Python arguments.  Prints one line per arm and
 case, a table, and writes every figure as JSON to ``--out``.  Needs a CUDA
 device; imports nothing of JAX.
@@ -38,9 +40,11 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TAG = "AB_RESULT "
 KEYS = ("cheb_iter", "stencil_apply", "cheb_iter_halo", "stencil_apply_halo", "cheb_iter_dg",
-        "cheb_iter_dg_halo")
+        "cheb_iter_dg_halo", "ms_mix_apply", "ms_mix_apply_split", "mass_stiffness_apply",
+        "mass_stiffness_apply_halo")
 # kernels whose arithmetic every arm must keep bit for bit
-BITWISE = ("cheb_iter_dg", "cheb_iter_dg_halo")
+BITWISE = ("cheb_iter", "stencil_apply", "cheb_iter_halo", "stencil_apply_halo", "cheb_iter_dg",
+           "cheb_iter_dg_halo")
 
 
 def digest(out) -> str:
@@ -51,7 +55,7 @@ def digest(out) -> str:
     return h.hexdigest()[:16]
 
 
-def run_arm(tree: str, smooth: bool, check: bool) -> dict:
+def run_arm(tree: str, smooth: bool, check: bool, keys=KEYS) -> dict:
     """In this process: the measurement of KEYS on ``tree``'s package;
     ``check``: each kernel held to its plain version at the measured shape
     first (``chip_smoke.REL_TOL``) and its outputs' digest kept."""
@@ -69,9 +73,12 @@ def run_arm(tree: str, smooth: bool, check: bool) -> dict:
     pkg = os.path.dirname(os.path.abspath(dealii_spirk_tpu_torch.__file__))
     if not pkg.startswith(os.path.abspath(tree)):
         raise SystemExit(f"imported the package from {pkg}, not from {tree}")
+    from dealii_spirk_tpu_torch.ops.cuda import stencil as st
+
     build.build()
     device = torch.device("cuda", 0)
-    cases = [c for c in cs.MEASURE_CASES if c[0] in KEYS]
+    # the KEYS this tree's package has (an older tree may lack a newer entry)
+    cases = [c for c in cs.MEASURE_CASES if c[0] in keys and c[0] in st.LAUNCHES]
     digests = {}
     if check:
         for case in cases:
@@ -94,11 +101,15 @@ def main(argv=None) -> int:
     ap.add_argument("--order", default="parent,tree,tree,parent")
     ap.add_argument("--smooth", action="store_true")
     ap.add_argument("--check", action="store_true")
+    ap.add_argument("--keys", default=",".join(KEYS), help="the KEYS to measure, comma-separated")
     ap.add_argument("--out", default=None)
     ap.add_argument("--arm", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    keys = args.keys.split(",")
+    if not set(keys) <= set(KEYS):
+        ap.error(f"--keys takes some of {', '.join(KEYS)}")
     if args.arm is not None:
-        print(TAG + json.dumps(run_arm(args.arm, args.smooth, args.check)), flush=True)
+        print(TAG + json.dumps(run_arm(args.arm, args.smooth, args.check, keys)), flush=True)
         return 0
     if "parent" in args.order.split(",") and args.parent is None:
         ap.error("--parent is required for a 'parent' arm")
@@ -110,7 +121,7 @@ def main(argv=None) -> int:
     runs = []
     for arm in args.order.split(","):
         cmd = [sys.executable, os.path.abspath(__file__), "--arm", trees[arm]]
-        flags = [f"--{f}" for f in ("smooth", "check") if getattr(args, f)]
+        flags = [f"--{f}" for f in ("smooth", "check") if getattr(args, f)] + ["--keys", args.keys]
         proc = subprocess.run(cmd + flags, capture_output=True, text=True)
         lines = [ln for ln in proc.stdout.splitlines() if not ln.startswith(TAG)]
         print("\n".join(f"[{arm}] {ln}" for ln in lines), flush=True)

@@ -1,5 +1,5 @@
-"""The launch plan of the z march (``csrc/march.cuh``: K4, K3, K3dg and
-their slab forms K9a, K9c, K9d), on the CPU: the kernels run only on the
+"""The launch plan of the z march (``csrc/march.cuh``: K1, K3, K3dg, K4,
+K5 and their slab forms K9a-K9d), on the CPU: the kernels run only on the
 card (``chip_smoke.py``), the plan and the launch arguments are Python.
 
 * ``march_plan`` / ``march_planes``: for every 3D shape of
@@ -14,7 +14,17 @@ card (``chip_smoke.py``), the plan and the launch arguments are Python.
   P10's launches on the 255 level do;
 * the six march wrappers hand the C entry points the arguments of
   ``build.SIGNATURES`` in order: pointers, ``b`` by value, the (q,)
-  coefficient tables of ``a`` (and ``c1``, ``c2``), the plan's chunk.
+  coefficient tables of ``a`` (and ``c1``, ``c2``), the plan's chunk;
+* K1 (the Mix mode: a block for every stage, ``mix_tile``'s tile height)
+  and its route (K2, then a block per stage of ``ms_mix_apply_split``), K5
+  and K9b: every K1, K5 and K9b launch shape of ``chip_smoke.KERNEL_CASES``,
+  ``HALO_CASES`` and the paths P1, P2, P4-P10 covers every output plane of
+  every stage once at its own tile; the wrappers hand their entry points
+  ``build.SIGNATURES``'s arguments in order; ``mix_tile`` picks the route
+  exactly where no block holds the q rings, and ``march_smem_bytes`` is
+  the shared memory ptxas reported for the Apply mode;
+* K1's library call (``chip_smoke.ms_mix_conv``, one dense conv3d) is K1's
+  function: at p = 1 in f64 it equals ``ms_mix_apply_ref``.
 """
 
 import os
@@ -167,3 +177,208 @@ def test_dg_launch_arguments(monkeypatch, name):
         assert args[3] == invd.data_ptr()
     if "_dg" in name:
         assert args[3:5] == (sops.mass_diag.data_ptr(), sops.stiff_diag.data_ptr())
+
+
+def _k1_launches() -> dict:
+    """(q, m, p) of every K1 launch of the kernels phase and of P1."""
+    shapes = {}
+    for dim, q, ref, p, names, _timed in chip_smoke.KERNEL_CASES:
+        if dim == 3 and "ms_mix_apply" in names:
+            shapes[f"kernel q={q} r={ref} p={p}"] = (q, _m(ref, p), p)
+    _dim, cfg, _levels = chip_smoke.PATHS["P1"]
+    shapes["P1"] = (cfg["IRKStages"], _m(cfg["NRefinements"], 1), 1)
+    return shapes
+
+
+# the lanes of a path's K5 launch (the vmult, unsharded: P2 the q stages, P4,
+# P5 and P10 the 2 n2 = 6 pair lanes) or of its K9b launch per slot of a
+# mesh with two space slots (P6, P7 a stage, P8, P9 a pair)
+K5_LANES = {"P2": 5, "P4": 6, "P5": 6, "P10": 6}
+K9B_LANES = {"P6": 1, "P7": 1, "P8": 2, "P9": 2}
+
+
+def _ms_launches() -> dict:
+    """(q, nz, m) of every K5 and K9b launch of the kernels phase and the paths."""
+    shapes = {}
+    for dim, q, ref, p, names, _timed in chip_smoke.KERNEL_CASES:
+        if dim == 3 and "mass_stiffness_apply" in names:
+            shapes[f"K5 q={q} r={ref} p={p}"] = (q, _m(ref, p), _m(ref, p))
+    for _q, ref, p, nsps, _timed in chip_smoke.HALO_CASES:
+        m = _m(ref, p)
+        for nsp in nsps:
+            for z0, z1 in z_partition(m, nsp):
+                shapes[f"K9b r={ref} p={p} {nsp} slabs, planes {z0}:{z1}"] = (1, z1 - z0, m)
+    for name, (_dim, cfg, _levels) in chip_smoke.PATHS.items():
+        m = _m(cfg["NRefinements"], 1)
+        if name in K5_LANES:
+            shapes[f"{name} K5"] = (K5_LANES[name], m, m)
+        elif name in K9B_LANES:
+            for z0, z1 in z_partition(m, 2):
+                shapes[f"{name} K9b planes {z0}:{z1}"] = (K9B_LANES[name], z1 - z0, m)
+    return shapes
+
+
+K1_SHAPES = _k1_launches()
+MS_SHAPES = _ms_launches()
+
+
+def _covered(q, nz, m, ty, per_stage):
+    """Each (stage, plane) that the plan's blocks write, counted, and the
+    grid's (y, x) tiles checked against [0, m)^2."""
+    chunk, grid = st.march_plan(q, nz, m, ty, per_stage=per_stage)
+    assert 1 <= chunk <= st.MARCH_MAX_CHUNK
+    tx = st.MARCH_TILE[1]
+    assert (grid[0] - 1) * tx < m <= grid[0] * tx
+    assert (grid[1] - 1) * ty < m <= grid[1] * ty
+    seen = {}
+    for bz in range(grid[2]):
+        stage, z0, z1 = st.march_planes(nz, chunk, bz)
+        stages = [stage] if per_stage else range(q)
+        assert 0 <= stage < (q if per_stage else 1) and 0 <= z0 < z1 <= nz
+        assert z1 - z0 <= chunk
+        for i in stages:
+            for z in range(z0, z1):
+                seen[i, z] = seen.get((i, z), 0) + 1
+    blocks = grid[0] * grid[1] * grid[2]
+    lanes = q if per_stage else 1
+    least = st.MARCH_MIN_BLOCKS if per_stage else st.MIX_MIN_BLOCKS
+    if grid[0] * grid[1] * lanes * nz >= least:
+        assert blocks >= least, (chunk, grid)
+    if 2 * chunk <= st.MARCH_MAX_CHUNK:  # the largest chunk that leaves them
+        assert grid[0] * grid[1] * lanes * -(-nz // (2 * chunk)) < least
+    return seen
+
+
+@pytest.mark.parametrize("where", sorted(K1_SHAPES))
+def test_k1_plan_covers_every_plane_once(where):
+    """K1's launch: every stage's planes once, by blocks that each hold
+    every stage (Mix), on ``mix_tile``'s tile; on the route, the split
+    march's blocks one stage each on the 16-row tile."""
+    q, m, p = K1_SHAPES[where]
+    ty = st.mix_tile(q, p)
+    if ty:
+        seen = _covered(q, m, m, ty, per_stage=False)
+    else:
+        seen = _covered(q, m, m, st.MARCH_TILE[0], per_stage=True)
+    assert seen == {(i, z): 1 for i in range(q) for z in range(m)}
+
+
+@pytest.mark.parametrize("where", sorted(MS_SHAPES))
+def test_k5_plan_covers_every_plane_once(where):
+    q, nz, m = MS_SHAPES[where]
+    seen = _covered(q, nz, m, st.MARCH_TILE[0], per_stage=True)
+    assert seen == {(i, z): 1 for i in range(q) for z in range(nz)}
+
+
+def test_the_k1_cases_take_both_tiles_and_the_route():
+    """The kernels phase holds K1 at both tile heights and on its route,
+    and P1 takes the 16-row tile with two blocks per SM."""
+    tiles = {st.mix_tile(q, p) for q, _m_, p in K1_SHAPES.values()}
+    assert tiles == {16, 8, 0}
+    q, m, p = K1_SHAPES["P1"]
+    assert st.mix_tile(q, p) == 16
+    assert 2 * (st.march_smem_bytes(p, 16, q) + 1024) <= st.SM_SMEM_BYTES
+    assert st.march_plan(q, m, m, 16, per_stage=False) == (8, (2, 8, 16))
+
+
+@pytest.mark.parametrize("p", [1, 2, 3, 4])
+def test_mix_tile_routes_only_where_no_block_holds_the_rings(p):
+    for q in range(1, st.QMAX + 1):
+        ty = st.mix_tile(q, p)
+        fits = [t for t in st.MIX_TILES
+                if st.march_smem_bytes(p, t, q) <= st.BLOCK_SMEM_BYTES]
+        assert (ty == 0) == (not fits), (q, ty)
+        if ty:
+            assert st.march_smem_bytes(p, ty, q) <= st.BLOCK_SMEM_BYTES
+    assert [q for q in range(1, 9) if not st.mix_tile(q, p)] == {
+        1: [], 2: [], 3: [7, 8], 4: [5, 6, 7, 8]}[p]
+
+
+# the dynamic shared memory of the Apply mode at p = 1-4 as ptxas reported it
+# on the H100 (March<P, Apply>::SMEM_FLOATS * 4, PERF.md section 6)
+APPLY_SMEM = {1: 37728, 2: 53504, 3: 72352, 4: 94464}
+
+
+@pytest.mark.parametrize("p", sorted(APPLY_SMEM))
+def test_march_smem_bytes_is_the_kernels_layout(p):
+    assert st.march_smem_bytes(p, st.MARCH_TILE[0], 1) == APPLY_SMEM[p]
+
+
+def _k_args(monkeypatch, fn, *args):
+    calls = _capture(monkeypatch)
+    fn(*args)
+    return calls
+
+
+@pytest.mark.parametrize("halo", [False, True])
+def test_k5_launch_arguments(monkeypatch, halo):
+    """K5 and K9b: u, M u, K u, the band tables, q, m, [nzl, z_off,] the
+    plan's chunk, p."""
+    q, ref, z0, nzl = 3, 4, 5, 6
+    ops = level_ops(make_level(ref, 1), torch.float32, "cpu")
+    m = ops.m
+    sops = slab_ops(ops, z0, nzl) if halo else ops
+    nz = nzl if halo else m
+    u = torch.zeros(q, nz + 2 * halo, m, m)
+    name = "spirk_mass_stiffness_apply" + ("_halo" if halo else "")
+    fn = st.mass_stiffness_apply_halo if halo else st.mass_stiffness_apply
+    ((called, args),) = _k_args(monkeypatch, fn, sops, u)
+    assert called == name
+    sig = build.SIGNATURES[name][:-1]
+    assert len(args) == len(sig) and all(isinstance(a, int) for a in args)
+    assert args[0] == u.data_ptr()
+    assert args[3:5] == (sops.mass_band.data_ptr(), sops.stiff_band.data_ptr())
+    slab = (nzl, z0) if halo else ()
+    assert args[5:] == (q, m, *slab, st.march_plan(q, nz, m)[0], 1)
+
+
+@pytest.mark.parametrize("q, p", [(4, 1), (8, 1), (4, 4), (8, 4)])
+def test_k1_launch_arguments(monkeypatch, q, p):
+    """K1: u, out, the band tables, the (q + 1, q) table [A^-1; tau], q, m,
+    the tile height, the chunk of a block for every stage, p; on the route
+    (no tile holds the q rings) K2's v = A^-1 u, then the split march: v,
+    u, out, the band tables, tau by value, q, m, the chunk, p."""
+    ops = level_ops(make_level(2, p), torch.float32, "cpu")
+    m = ops.m
+    u = torch.zeros(q, m, m, m)
+    ainv = torch.linspace(-1.0, 1.0, q * q).reshape(q, q)
+    calls = _k_args(monkeypatch, st.ms_mix_apply, ops, ainv, 0.25, u)
+    ty = st.mix_tile(q, p)
+    if ty:
+        ((called, args),) = calls
+        assert called == "spirk_ms_mix_apply"
+    else:
+        (k2, k2_args), (called, args) = calls
+        assert (k2, called) == ("spirk_stage_mix", "spirk_ms_mix_apply_split")
+        assert len(k2_args) == len(build.SIGNATURES[k2]) - 1
+        assert k2_args[0] == u.data_ptr() and k2_args[3:] == (q, q, u[0].numel())
+    sig = build.SIGNATURES[called][:-1]
+    assert len(args) == len(sig)
+    for arg, kind in zip(args, sig):
+        assert isinstance(arg, float if kind is build._F else int)
+    if ty:
+        assert args[0] == u.data_ptr()
+        assert args[2:4] == (ops.mass_band.data_ptr(), ops.stiff_band.data_ptr())
+        chunk, _grid = st.march_plan(q, m, m, ty, per_stage=False)
+        assert args[5:] == (q, m, ty, chunk, p)
+    else:
+        assert args[0] == k2_args[1] and args[1] == u.data_ptr()
+        assert args[3:6] == (ops.mass_band.data_ptr(), ops.stiff_band.data_ptr(), 0.25)
+        assert args[6:] == (q, m, st.march_plan(q, m, m)[0], p)
+
+
+@pytest.mark.parametrize("q", [1, 4, 5])
+def test_k1_library_conv_is_k1(q):
+    """``chip_smoke.ms_mix_conv``: one dense conv3d with q input and q
+    output channels, weight[i, j] = A^-1[i, j] M3 + delta_ij tau K3, equals
+    ``ms_mix_apply_ref`` at p = 1 in f64."""
+    import numpy as np
+
+    ops = level_ops(make_level(3, 1), torch.float64, "cpu")
+    rng = np.random.default_rng(q)
+    u = torch.as_tensor(rng.uniform(-1, 1, (q,) + (ops.m,) * 3))
+    ainv = torch.as_tensor(rng.uniform(-2, 2, (q, q)))
+    want = st.ms_mix_apply_ref(ops, ainv, 0.1, u)
+    got = chip_smoke.ms_mix_conv(ops, ainv, 0.1)(u)
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= 1e-13 * float(want.abs().max())
