@@ -45,7 +45,7 @@ Phases; any failure exits non-zero:
 2. build: compiles ``dealii_spirk_tpu_torch/csrc`` with nvcc, one process
    per source, all started together;
 3. kernels: the 2D kernels of P3 on a smooth field at its finest level,
-   K3dg, K4, K5 and K9b at P4's, K3 at P4's 127 level and K1 at P1's
+   K3dg, K8, K4, K5 and K9b at P4's, K3 at P4's 127 level and K1 at P1's
    finest level (``smooth_bias``): each
    kernel's mean error against the f64 plain version within SMOOTH_BIAS
    times its f32 plain version's (a rounding error that follows the field
@@ -60,8 +60,10 @@ Phases; any failure exits non-zero:
    K9a-K9d through the space-sharded layer (2 and 4 space slots, degrees
    1-4): gathered, against the same layer over their plain versions, and
    ``torch.equal`` to the whole-field kernel; K8 also against two chained
-   K3dg launches (and timed beside them), and a mesh V-cycle at P7's
-   levels asked for pair steps launches no K8;
+   K3dg launches (timed beside them; whether it equals them bit for bit,
+   and its launches' registers and shared bytes from the profiler's
+   trace, are printed), and a mesh V-cycle at P7's levels asked for pair
+   steps launches no K8;
 3b. measurement (``measure_kernels``, MEASURE_CASES): K2 and K4-2D at P3's
    finest shape, K4-2D at m=255, K2 at the 3D shapes of P1, P2 and P4's
    maps, K4 at P1's and P4's finest levels and K9a at P6's and P7's slabs,
@@ -69,7 +71,8 @@ Phases; any failure exits non-zero:
    and P5, K9b at P6's and P7's slabs, each beside its library call, and
    K3 at P1's finest level and P4's 127 level, K3dg at P4's finest level,
    K9c at P6's slab, K9d at P7's and K1's split march at P1's shape, which
-   have none: device time per launch from
+   have none, K8 at P4's finest level beside two K3dg launches, and K5-2D
+   at P3's finest level and m=255 beside a grouped conv2d: device time per launch from
    ``torch.profiler``, time per call from CUDA events in turns (kernel,
    library, library, kernel), L2-warm and L2-cold; printed and kept in the
    kernels line (``device_ms``, ``cold_ms``, ``measured``), not a gate;
@@ -174,7 +177,7 @@ KERNELS = {
     "stage_mix": (_CS + "stage_mix.cu", f"{_ST}:2749"),
     "cheb_iter": (_CS + "march.cuh", f"{_ST}:3196"),
     "cheb_iter_dg": (_CS + "march.cuh", f"{_ST}:2503"),
-    "cheb_pair_dg": (_CS + "cheb_pair.cu", f"{_ST}:2215"),
+    "cheb_pair_dg": (_CS + "march.cuh", f"{_ST}:2215"),
     "stencil_apply": (_CS + "march.cuh", f"{_ST}:682"),
     "stencil_apply_2d": (_CS + "stencil_apply.cu", f"{_ST}:832"),
     "mass_stiffness_apply": (_CS + "march.cuh", f"{_ST}:762"),
@@ -273,8 +276,9 @@ HALO_CASES = [
     (4, 3, 4, (2, 4), False),
 ]
 # K8 against its plain version and two chained K3dg launches: (q, refinement,
-# degree, timed); m = 255 and 127 are no multiple of the 8 x 8 x 32 tile, 15
-# is less than one tile along x, p = 2-4 take the smaller tiles of PAIR_TILE
+# degree, timed); m = 255 and 127 are no multiple of the 16 x 64 tile, 15 is
+# less than one tile along x (and m = 15 leaves chunks of one plane), p = 2
+# and 4 take pair_tile's 8-row tile, p = 3 the 16-row one
 PAIR_CASES = [
     (6, 8, 1, True),  # P10's 255 level: P4's shape
     (3, 7, 1, False),
@@ -283,8 +287,6 @@ PAIR_CASES = [
     (4, 4, 3, False),
     (4, 4, 4, False),
 ]
-# K8's output tile per degree (csrc/cheb_pair.cu, PairTile): z, y, x
-PAIR_TILE = {1: (8, 8, 32), 2: (8, 8, 32), 3: (4, 8, 32), 4: (4, 8, 16)}
 # two chained f32 steps: the second step's apply carries the first step's
 # round-off, so K8 is held to twice the one-step tolerance
 PAIR_TOL = 2 * REL_TOL
@@ -305,9 +307,11 @@ MIX_CASES = [
 # stage at the first of two slabs: K9c and K9a at P6's (64 planes of 127^2),
 # K9a and K9d at P7's (128 planes of 255^2).  K1 at P1's shape and at m=31;
 # K5 at P4's 255 level (six lanes), P2's (q=5, m=127) and P5's (q=6, m=127)
-# shapes; K9b at P6's and P7's slabs.  K4, K5, K9a and K9b beside cuDNN's
-# grouped conv3d, K1 beside a dense conv3d (``ms_mix_conv``); no PyTorch call
-# computes K3, K3dg, K9c or K9d.
+# shapes; K9b at P6's and P7's slabs; K8 at P4's 255 level (P10's, beside
+# two K3dg launches); K5-2D at P3's finest level and m=255.  K4, K5, K9a and
+# K9b beside cuDNN's grouped conv3d, K5-2D beside a grouped conv2d, K1
+# beside a dense conv3d (``ms_mix_conv``); no PyTorch call computes K3,
+# K3dg, K8, K9c or K9d.
 MEASURE_CASES = [
     ("stage_mix", 2, 4, 4, 10),
     ("stencil_apply_2d", 2, 4, 4, 10),
@@ -335,12 +339,16 @@ MEASURE_CASES = [
     ("mass_stiffness_apply_halo", 3, 1, 1, 7),
     ("mass_stiffness_apply_halo", 3, 1, 1, 8),
     ("ms_mix_apply_split", 3, 4, 4, 7),
+    ("cheb_pair_dg", 3, 6, 6, 8),
+    ("mass_stiffness_apply_2d", 2, 4, 4, 10),
+    ("mass_stiffness_apply_2d", 2, 4, 4, 8),
 ]
 # the device kernels of a LAUNCHES key, by name in the profiler (default the
-# key itself): the z march of each mode (csrc/march.cuh), or the kernels it
-# replaced (the tile kernels cheb_iter_kernel, stencil_apply_kernel,
-# ms_mix_kernel and mass_stiffness_kernel, the first z march cheb_dg_march),
-# so that an older tree's arm is measured too
+# key itself): the z march of each mode and its pair form (csrc/march.cuh),
+# or the kernels it replaced (the tile kernels cheb_iter_kernel,
+# stencil_apply_kernel, ms_mix_kernel, mass_stiffness_kernel and
+# cheb_pair_kernel, the first z march cheb_dg_march), so that an older
+# tree's arm is measured too
 DEVICE_NAMES = {
     "ms_mix_apply": ("Mix<", "ms_mix_kernel"),
     "ms_mix_apply_split": ("MixSplit",),
@@ -352,6 +360,8 @@ DEVICE_NAMES = {
     "stencil_apply_halo": ("Apply>", "stencil_apply_kernel"),
     "cheb_iter_dg": ("ChebDiag", "cheb_dg_march", "cheb_iter_kernel"),
     "cheb_iter_dg_halo": ("ChebDiag", "cheb_dg_march", "cheb_iter_kernel"),
+    "cheb_pair_dg": ("pair_march", "cheb_pair_kernel"),
+    "mass_stiffness_apply_2d": ("mass_stiffness_2d_kernel",),
 }
 TURNS = 3  # each: kernel, library, library, kernel
 # smooth_bias: a kernel's mean error on P3's smooth block within this many
@@ -699,10 +709,9 @@ def check_halo_kernels(device, report: dict) -> None:
 def check_pair_kernel(device, report: dict) -> None:
     """Phase 3 for K8 (PAIR_CASES): against its plain version (two chained
     plain K3dg steps) and against two chained K3dg launches, both to
-    PAIR_TOL; at P10's shape the times of K8, of the plain version and of
-    the two K3dg launches and K8's bound; printed beside them, not reported,
-    an estimate of the operations K8 really does (stage 1 on the tile grown
-    by p on every side) at the f32 peak."""
+    PAIR_TOL, saying whether it equals the two launches bit for bit; at
+    P10's shape the times of K8, of the plain version and of the two K3dg
+    launches and K8's bound."""
     from dealii_spirk_tpu_torch.fem.grid import make_level
     from dealii_spirk_tpu_torch.ops.cuda import stencil as st
     from dealii_spirk_tpu_torch.ops.mass_laplace import level_ops
@@ -735,27 +744,25 @@ def check_pair_kernel(device, report: dict) -> None:
             return st.cheb_iter_dg(ops, a, b, c1b, c2b, d1, r1, x1)
 
         at = f"3D p={p} m={m} q={q}"
-        got = kern()
+        got, twin = kern(), two_k3dg()
         err = _hold(f"kernel {'cheb_pair_dg':24s} {at}", got, plain(), PAIR_TOL)
-        _hold("  against two K3dg launches", got, two_k3dg(), PAIR_TOL)
+        _hold("  against two K3dg launches", got, twin, PAIR_TOL)
+        say(f"  equal to two K3dg launches bit for bit: "
+            f"{all(torch.equal(g, t) for g, t in zip(got, twin))}")
+        for la in launch_attrs(kern, "pair_march"):
+            say(f"  launch {la['name']}: grid {la['grid']}, block {la['block']}, "
+                f"{la['registers per thread']} registers, {la['shared memory']} B shared")
         report["cheb_pair_dg"]["max_abs_err"] = max(report["cheb_pair_dg"]["max_abs_err"], err)
-        del got
+        del got, twin
         if timed:
             ms, plain_ms, two_ms = cuda_ms(kern), cuda_ms(plain), cuda_ms(two_k3dg)
             bnd = bound("cheb_pair_dg", q, q, m**3, p, 3)
-            # stage 1 runs on the grown tile: its share of the operations
-            tz, ty, tx = PAIR_TILE[p]
-            grown = (tz + 2 * p) * (ty + 2 * p) * (tx + 2 * p) / (tz * ty * tx)
-            own_flops = (1 + grown) * q * m**3 * (14 * (2 * p + 1) + 18)
-            own_ms = own_flops / F32_FLOPS_PER_S * 1e3
             report["cheb_pair_dg"]["times"].append({
                 "at": at, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
                 "bound_ms": bnd[0], "bound_by": bnd[1], "two_k3dg_ms": two_ms,
             })
             say(f"  time at {at}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms, two K3dg "
-                f"launches {two_ms:.4f} ms, library none, bound {bnd[0]:.4f} ms ({bnd[1]}); "
-                f"estimate, not measured: with stage 1 on the {grown:.3f}x grown tile its "
-                f"f32 operations take {own_ms:.4f} ms at peak")
+                f"launches {two_ms:.4f} ms, library none, bound {bnd[0]:.4f} ms ({bnd[1]})")
         del d, r, x
         torch.cuda.empty_cache()
 
@@ -827,6 +834,30 @@ def _time_slab(report, sops, ops, u, d, r, x, invd, a, b, c1, c2) -> None:
             _hold(f"  library call for {name}", lib(), plain(), LIB_TOL)
         _time(report, name, at, kern, plain, lib,
               bound(name, 1, 1, nzl * m * m, p, 3, halo_points=2 * p * m * m))
+
+
+def launch_attrs(fn, marker: str) -> list[dict]:
+    """The launches of ``fn`` whose kernel name holds ``marker``, as the
+    profiler's trace records them (CUPTI): grid, block, registers per thread
+    and shared memory (static and dynamic) per block."""
+    import os
+    import tempfile
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.remove(path)
+    keys = ("grid", "block", "registers per thread", "shared memory")
+    return [{"name": e["name"], **{k: e.get("args", {}).get(k) for k in keys}}
+            for e in events if e.get("cat") == "kernel" and marker in e.get("name", "")]
 
 
 def _dev_us(e) -> float:
@@ -920,6 +951,34 @@ def _measure_setup(key: str, dim: int, qi: int, qo: int, ref: int, device) -> di
             "at": f"{dim}D p=1 m={m} q={qi}", "library": "grouped conv2d",
             "bound": bound(key, qi, qo, m**dim, 1, dim),
         }
+    if key == "mass_stiffness_apply_2d":
+        return {
+            "kern": lambda u: st.mass_stiffness_apply(ops, u),
+            "plain": lambda u: st.mass_stiffness_apply_ref(ops, u),
+            "lib": ms_conv(ops, qi, dim),
+            "make": lambda: (field(qi, *(m,) * dim),),
+            "bytes": 4 * 3 * qi * m**dim,
+            "at": f"{dim}D p=1 m={m} q={qi}", "library": "grouped conv2d",
+            "bound": bound(key, qi, qo, m**dim, 1, dim),
+        }
+    if key == "cheb_pair_dg":
+        # K8 beside the two K3dg launches that compute the same two steps
+        # (``twin``: other kernels of the port, not a library call)
+        c1a, c2a, c1b, c2b = vec(0.2, 0.9), vec(0.1, 0.5), vec(0.2, 0.9), vec(0.1, 0.5)
+
+        def two_k3dg(d, r, x):
+            r1, d1, x1 = st.cheb_iter_dg(ops, a, 0.1, c1a, c2a, d, r, x)
+            return st.cheb_iter_dg(ops, a, 0.1, c1b, c2b, d1, r1, x1)
+
+        return {
+            "kern": lambda *f: st.cheb_pair_dg(ops, a, 0.1, c1a, c2a, c1b, c2b, *f),
+            "plain": lambda *f: st.cheb_pair_dg_ref(ops, a, 0.1, c1a, c2a, c1b, c2b, *f),
+            "lib": None, "twin": two_k3dg, "twin_name": "two K3dg launches",
+            "make": lambda: tuple(field(qi, m, m, m) for _ in range(3)),
+            "bytes": 4 * 6 * qi * m**3,
+            "at": f"3D p=1 m={m} q={qi}", "library": "none",
+            "bound": bound(key, qi, qi, m**3, 1, 3),
+        }
     # the 3D stencil kernels, whole field or the first of two z slabs (one
     # stage); the halo forms' operand carries p = 1 planes of each neighbour
     halo = 1 if key in HALO else 0
@@ -1009,24 +1068,30 @@ def measure_kernels(device, cases=None) -> list[dict]:
     TURNS turns.  Each turn takes the time per call from CUDA events over
     20 back-to-back calls (``timed_calls``, host work included, and the
     host's own time per call beside it) in the order kernel, library,
-    library, kernel (kernel, kernel without a library call), L2-warm (one
+    library, kernel (K8: its two K3dg launches in the library's place;
+    kernel, kernel without either), L2-warm (one
     input set, as the kernels phase times) and L2-cold (rotating over input
     and output sets of twice the L2's size); then the device time per
     launch from ``torch.profiler`` (``device_ms``), warm and cold: the
-    kernel alone (DEVICE_NAMES), and the library call's device ops summed.
+    kernel alone (DEVICE_NAMES), and the library call's (two K3dg
+    launches') device ops summed.
     The cold times are the ones held against the HBM bound; a case's
     figures are the least over the turns."""
     results = []
     for key, dim, qi, qo, ref in MEASURE_CASES if cases is None else cases:
         c = _measure_setup(key, dim, qi, qo, ref, device)
         kern, lib, at, library, bnd = c["kern"], c["lib"], c["at"], c["library"], c["bound"]
+        twin = c.get("twin")
         n_sets = max(2, -(-2 * L2_CACHE_BYTES // c["bytes"]))
         sets = [c["make"]() for _ in range(n_sets)]
         warm = {"kernel": lambda: kern(*sets[0])}
         cold = {"kernel": _rotating(kern, sets)}
         if lib is not None:
             warm["library"], cold["library"] = (lambda: lib(*sets[0])), _rotating(lib, sets)
-        order = ("kernel", "library", "library", "kernel") if lib is not None else ("kernel",) * 2
+        if twin is not None:
+            warm["twin"], cold["twin"] = (lambda: twin(*sets[0])), _rotating(twin, sets)
+        other = "library" if lib is not None else "twin" if twin is not None else None
+        order = ("kernel", other, other, "kernel") if other else ("kernel",) * 2
         marker = DEVICE_NAMES.get(key, (key,))
         fmt = lambda v: "not seen" if v is None else f"{v:.4f}"  # noqa: E731
         turns = []
@@ -1044,6 +1109,11 @@ def measure_kernels(device, cases=None) -> list[dict]:
                     row[mode] |= {"library_ms": sum(t[0] for t in lt) / 2,
                                   "library_host_ms": sum(t[1] for t in lt) / 2,
                                   "library_device_ms": ld, "library_device_ops_per_call": lops}
+                if twin is not None:
+                    tt = [t for w, t in timed if w == "twin"]
+                    td, tops = device_ms(calls["twin"], None)
+                    row[mode] |= {"twin_ms": sum(t[0] for t in tt) / 2,
+                                  "twin_device_ms": td, "twin_device_ops_per_call": tops}
             w_, c_ = row["warm"], row["cold"]
             line = (f"measure {key} {at} turn {t + 1} (kernel / {library}, ms): per call warm "
                     f"{w_['ms']:.4f}, cold {c_['ms']:.4f}; device per launch warm "
@@ -1058,6 +1128,10 @@ def measure_kernels(device, cases=None) -> list[dict]:
                          f"cold {fmt(c_['library_device_ms'])}, host {w_['library_host_ms']:.4f},"
                          f" device ops {w_['library_device_ops_per_call']:g}; kernel at or below"
                          f" the library warm, per call and on the device: {row['held']}")
+            if twin is not None:
+                line += (f"; {c['twin_name']} per call warm {w_['twin_ms']:.4f}, cold "
+                         f"{c_['twin_ms']:.4f}, device warm {fmt(w_['twin_device_ms'])}, cold "
+                         f"{fmt(c_['twin_device_ms'])}, device ops {w_['twin_device_ops_per_call']:g}")
             turns.append(row)
             say(line)
 
@@ -1077,13 +1151,20 @@ def measure_kernels(device, cases=None) -> list[dict]:
             "held_every_turn": all(r["held"] for r in turns) if lib is not None else None,
             "turns": turns,
         }
+        if twin is not None:
+            res |= {"twin": c["twin_name"], "twin_ms": least("warm", "twin_ms"),
+                    "twin_cold_ms": least("cold", "twin_ms"),
+                    "twin_device_ms": least("warm", "twin_device_ms"),
+                    "twin_cold_device_ms": least("cold", "twin_device_ms")}
         say(f"measure {key} {at}: bound {bnd[0]:.4f} ms ({bnd[1]}); L2-cold per call "
             f"{res['cold_ms']:.4f} ms (bound / time {bnd[0] / res['cold_ms']:.3f}), on the device "
             f"{fmt(res['cold_device_ms'])} ms"
             + ("" if res["cold_device_ms"] is None
                else f" (bound / time {bnd[0] / res['cold_device_ms']:.3f})")
             + ("" if lib is None else
-               f"; at or below the library in every turn: {res['held_every_turn']}"))
+               f"; at or below the library in every turn: {res['held_every_turn']}")
+            + ("" if twin is None else
+               f"; {c['twin_name']} L2-cold on the device {fmt(res['twin_cold_device_ms'])} ms"))
         results.append(res)
         del sets, warm, cold, c
         torch.cuda.empty_cache()
@@ -1171,8 +1252,9 @@ def _smooth_arms(name: str, at: str, arms: dict, outputs=(None,)):
 
 def smooth_cases_3d(device):
     """The 3D kernels on P4's six lanes of smooth fields (``_smooth_block``):
-    K3dg's r', d', x', K4's (a_i M + b K) d and K5's M d and K d at the 255
-    level, K9b's on the first of its two z slabs; K3's r', d', x' at the
+    K3dg's r', d', x', K8's r2, d2, x2 (both steps with K3dg's a, c1, c2),
+    K4's (a_i M + b K) d and K5's M d and K d at the 255 level, K9b's on
+    the first of its two z slabs; K3's r', d', x' at the
     127 level (``_smooth_cases_k3``); K1 at P1's finest level with P1's
     A^-1 and tau (``_smooth_cases_k1``)."""
     from dealii_spirk_tpu_torch.ops.cuda import stencil as st
@@ -1188,6 +1270,13 @@ def smooth_cases_3d(device):
         "exact": lambda: st.cheb_iter_dg_ref(o64, a, b, c1, c2, d.double(), r.double(),
                                              x.double()),
     }, ("r'", "d'", "x'"))
+    # K8: the two steps with K3dg's row's coefficients, (c1, c2) for both
+    yield from _smooth_arms("cheb_pair_dg", at, {
+        "kernel": lambda: st.cheb_pair_dg(o32, a32, b, c132, c232, c132, c232, d, r, x),
+        "plain": lambda: st.cheb_pair_dg_ref(o32, a32, b, c132, c232, c132, c232, d, r, x),
+        "exact": lambda: st.cheb_pair_dg_ref(o64, a, b, c1, c2, c1, c2, d.double(), r.double(),
+                                             x.double()),
+    }, ("r2", "d2", "x2"))
     yield from _smooth_arms("stencil_apply", at, {
         "kernel": lambda: st.stencil_apply(o32, a32, b, d),
         "plain": lambda: st.stencil_apply_ref(o32, a32, b, d),

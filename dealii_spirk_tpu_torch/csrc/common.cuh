@@ -6,8 +6,8 @@
 // (k in [-p, p]), with zero weights for every coupling that leaves
 // [0, m) — the convention of dealii_spirk_tpu/ops/banded.py.
 //
-// The 3D kernels march over z (march.cuh: K1, K3, K3dg, K4, K5 and the
-// slab forms K9a-K9d); K8 (cheb_pair.cu) sizes its own tiles.  The z extent
+// The 3D kernels march over z (march.cuh: K1, K3, K3dg, K4, K5, K8 and the
+// slab forms K9a-K9d).  The z extent
 // of a launch is a ZSlab: a whole field (nz = m planes, no halo, rows from
 // 0), or one slab of a field that is split over z between the slots of a
 // (stage, space) mesh.  A slab's outputs are its own nz planes, global rows
@@ -38,6 +38,8 @@ struct ZSlab {
 
 __host__ __device__ inline ZSlab whole_field(int m) { return ZSlab{m, 0, 0}; }
 
+// the band rows [mass, stiff][k][row] of T rows from global row r0 on
+// (rows outside [0, m) weigh zero)
 template <int T>
 __device__ inline void load_band_rows(float* dst, const float* __restrict__ mband,
                                       const float* __restrict__ kband, int nb, int m,
@@ -48,7 +50,7 @@ __device__ inline void load_band_rows(float* dst, const float* __restrict__ mban
     int which = i / (T * nb);
     int g = r0 + r;
     const float* band = which ? kband : mband;
-    dst[i] = (g < m) ? band[k * m + g] : 0.f;
+    dst[i] = (g >= 0 && g < m) ? band[k * m + g] : 0.f;
   }
 }
 

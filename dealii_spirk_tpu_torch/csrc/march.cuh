@@ -13,7 +13,10 @@
 //                          stage of the block at once (a ring per stage), on
 //                          a TY x 64 tile;
 //   MixSplit  (K1's route where the stages' rings do not fit):
-//                          out_i = M v_i + tau K d_i, v = A^-1 d from K2.
+//                          out_i = M v_i + tau K d_i, v = A^-1 d from K2;
+//
+// and its pair form pair_march (K8, the end of this file): two ChebDiag
+// steps in one pass, stage 2 marching p planes behind stage 1.
 //
 // One block of NTHREADS threads owns one stage's TY x MX = 16 x 64 (y, x)
 // output tile (Mix: every stage's, TY x 64) and marches over a chunk of z
@@ -50,8 +53,8 @@
 // The coefficients come by pointer (a, c1, c2, (q,) each; Mix's (q + 1, q)
 // table) and by value (b; MixSplit's tau): a launch is one device op.  Bound
 // on the H100: DRAM (2 field passes per point for Apply and Mix, 3 for
-// MassStiff and MixSplit, 7 for ChebInvd, 6 for ChebDiag, against 40-80
-// flops per point at p = 1).
+// MassStiff and MixSplit, 7 for ChebInvd, 6 for ChebDiag and for K8's two
+// steps, against 40-80 flops per point and step at p = 1).
 #pragma once
 
 #include <type_traits>
@@ -161,6 +164,109 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
+// The pieces every mode and the pair march share: a haloed plane's copies,
+// the sums of the z, y and x passes at one point, the Jacobi diagonal and
+// the Chebyshev update.  Their products and sums are written as the fused
+// (fmaf) or separate operations the earlier kernels were compiled to, so a
+// value does not depend on how nvcc contracts an expression where it is
+// inlined: the modes keep the earlier kernels' bytes (the A/B digests of
+// scripts/torch_kernel_ab.py), and one K8 launch equals two K3dg launches.
+
+// this thread's copies of an HY x HX haloed plane whose first row and
+// column are the global (y0, x0): the offset in a global m x m plane, -1
+// outside [0, m)^2
+template <int HY, int HX, int LOADS>
+__device__ __forceinline__ void plane_offsets(int (&goff)[LOADS], int y0, int x0, int m) {
+#pragma unroll
+  for (int s = 0; s < LOADS; ++s) {
+    const int i = threadIdx.x + s * NTHREADS;
+    const int gy = y0 + i / HX, gx = x0 + i % HX;
+    goff[s] = (i < HY * HX && gy >= 0 && gy < m && gx >= 0 && gx < m) ? gy * m + gx : -1;
+  }
+}
+
+// a haloed plane's copies from the global plane src into dst; zeros where
+// zin is false (a plane outside the operand) or outside [0, m)^2
+template <int PLANE, int LOADS>
+__device__ __forceinline__ void load_plane(float* dst, const float* src, const int (&goff)[LOADS],
+                                           bool zin) {
+#pragma unroll
+  for (int s = 0; s < LOADS; ++s) {
+    const int i = threadIdx.x + s * NTHREADS;
+    if (s + 1 < LOADS || i < PLANE) cp_async4(dst + i, src + max(goff[s], 0), zin && goff[s] >= 0);
+  }
+}
+
+// z pass at entry i of the planes pl: the mass and the stiffness sums
+template <int NB>
+__device__ __forceinline__ void z_sums(const float* const (&pl)[NB], const float (&wzm)[NB],
+                                       const float (&wzk)[NB], int i, float& zm, float& zk) {
+  zm = 0.f;
+  zk = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < NB; ++kk) {
+    const float v = pl[kk][i];
+    zm = fmaf(wzm[kk], v, zm);
+    zk = fmaf(wzk[kk], v, zk);
+  }
+}
+
+// E of the z pass of a M + b K: a Zm + b Zk
+__device__ __forceinline__ float shifted_e(float a, float b, float zm, float zk) {
+  return fmaf(a, zm, b * zk);
+}
+
+// y pass at entry i of E and F (rows `stride` apart), band row ly of a
+// table of `rows` rows ([mass, stiff][k][row]): c = My E + Ky F, d = My F,
+// the stiffness taps Ky F summed apart from the mass taps
+template <int NB>
+__device__ __forceinline__ void y_sums(const float* E, const float* F, const float* yw, int rows,
+                                       int ly, int i, int stride, float& c, float& d) {
+  float cm = 0.f, ck = 0.f, dd = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < NB; ++kk) {
+    const int j = i + kk * stride;
+    const float e = E[j], f = F[j];
+    const float wm = yw[kk * rows + ly], wk = yw[(NB + kk) * rows + ly];
+    cm = fmaf(wm, e, cm);
+    ck = fmaf(wk, f, ck);
+    dd = fmaf(wm, f, dd);
+  }
+  c = cm + ck;
+  d = dd;
+}
+
+// x pass over C and D from entry c0 on: Mx C + Kx D, the mass taps and the
+// stiffness taps in sums of their own; MU: mu = Mx D too (M d)
+template <int NB, bool MU>
+__device__ __forceinline__ float x_sums(const float* C, const float* D, int c0,
+                                        const float (&xwm)[NB], const float (&xwk)[NB],
+                                        float& mu) {
+  float mx = 0.f, kx = 0.f;
+  mu = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < NB; ++kk) {
+    mx = fmaf(xwm[kk], C[c0 + kk], mx);
+    kx = fmaf(xwk[kk], D[c0 + kk], kx);
+    if constexpr (MU) mu = fmaf(xwm[kk], D[c0 + kk], mu);
+  }
+  return mx + kx;
+}
+
+// the Jacobi diagonal of a M + b K at a point from the 1D diagonals at its
+// z, y and x (mass, stiffness), in the plain version's order (cheb_diag)
+__device__ __forceinline__ float jacobi_diag(float a, float b, float zdm, float zdk, float ym,
+                                             float yk, float xdm, float xdk) {
+  const float zmym = zdm * ym;
+  const float stiff = fmaf(zdk, ym, zdm * yk);
+  return fmaf(b * zmym, xdk, fmaf(a, zmym, b * stiff) * xdm);
+}
+
+// the Chebyshev update d' = c1 d + c2 z
+__device__ __forceinline__ float cheb_d(float c1, float d, float c2, float z) {
+  return fmaf(c1, d, c2 * z);
+}
+
 // grid (ceil(m / MX), ceil(m / TY), ceil(zs.nz / chunk) per stage, times q
 // but for Mix)
 template <int P, class Mode>
@@ -204,15 +310,9 @@ march(const MarchArgs g) {
   if constexpr (NF > 1) fields[1] = g.x;
   if constexpr (NF > 2) fields[2] = g.invd;
 
-  // this thread's copies of a haloed plane: offset in a global plane, -1
-  // outside [0, m)^2
+  // this thread's copies of a haloed plane
   int goff[G::LOADS];
-#pragma unroll
-  for (int s = 0; s < G::LOADS; ++s) {
-    const int i = tid + s * NTHREADS;
-    const int gy = y0 + i / HX - P, gx = x0 + i % HX - P;
-    goff[s] = (i < PLANE && gy >= 0 && gy < m && gx >= 0 && gx < m) ? gy * m + gx : -1;
-  }
+  plane_offsets<G::HY, HX, G::LOADS>(goff, y0 - P, x0 - P, m);
   // this thread's output points: column ocol, rows orow + s * MROWS
   const int ocol = tid % MX, orow = tid / MX;
   const int gx = x0 + ocol;
@@ -228,16 +328,9 @@ march(const MarchArgs g) {
   auto load_d = [&](int j) {
     const int gz = z0 + j + zs.halo;
     const bool zin = gz >= 0 && gz < nz_in;
-    for (int rg = 0; rg < nrings; ++rg) {
-      const float* src = operand(rg) + (zin ? gz : 0) * mm;
-      float* dst = ring + (rg * RING + (j + P) % RING) * PLANE;
-#pragma unroll
-      for (int s = 0; s < G::LOADS; ++s) {
-        const int i = tid + s * NTHREADS;
-        if (s + 1 < G::LOADS || i < PLANE)
-          cp_async4(dst + i, src + max(goff[s], 0), zin && goff[s] >= 0);
-      }
-    }
+    for (int rg = 0; rg < nrings; ++rg)
+      load_plane<PLANE, G::LOADS>(ring + (rg * RING + (j + P) % RING) * PLANE,
+                                  operand(rg) + (zin ? gz : 0) * mm, goff, zin);
   };
   // the per-point fields at this thread's points of plane j into buffer j & 1
   auto load_fields = [&](int j) {
@@ -303,28 +396,18 @@ march(const MarchArgs g) {
     for (int s = 0; s < G::LOADS; ++s) {
       const int i = tid + s * NTHREADS;
       if (s + 1 < G::LOADS || i < PLANE) {
-        float zm = 0.f, zk = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < NB; ++kk) {
-          const float v = pl[kk][i];
-          zm += wzm[kk] * v;
-          zk += wzk[kk] * v;
-        }
+        float zm, zk;
+        z_sums<NB>(pl, wzm, wzk, i, zm, zk);
         if constexpr (SPLIT) {  // zm is Zm v; Zm d and Zk d from ring 1
-          float um = 0.f, uk = 0.f;
-#pragma unroll
-          for (int kk = 0; kk < NB; ++kk) {
-            const float v = pl[kk][RING * PLANE + i];
-            um += wzm[kk] * v;
-            uk += wzk[kk] * v;
-          }
+          float um, uk;
+          z_sums<NB>(pl, wzm, wzk, RING * PLANE + i, um, uk);
           E[i] = zm + b * uk;
           F[i] = b * um;
         } else if constexpr (MS || MIX) {
           E[i] = zk;
           F[i] = zm;
         } else {
-          E[i] = a * zm + b * zk;
+          E[i] = shifted_e(a, b, zm, zk);
           F[i] = b * zm;
         }
       }
@@ -333,21 +416,7 @@ march(const MarchArgs g) {
   // y pass over the tile rows and the haloed x extent: C = My E + Ky F,
   // D = My F, the stiffness taps Ky F summed apart from the mass taps
   auto y_pass = [&]() {
-    for (int i = tid; i < G::YP; i += NTHREADS) {
-      const int ly = i / HX;
-      float cm = 0.f, ck = 0.f, dd = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < NB; ++kk) {
-        const int j = i + kk * HX;
-        const float e = E[j], f = F[j];
-        const float wm = yw[kk * TY + ly], wk = yw[(NB + kk) * TY + ly];
-        cm = fmaf(wm, e, cm);
-        ck = fmaf(wk, f, ck);
-        dd = fmaf(wm, f, dd);
-      }
-      C[i] = cm + ck;
-      D[i] = dd;
-    }
+    for (int i = tid; i < G::YP; i += NTHREADS) y_sums<NB>(E, F, yw, TY, i / HX, i, HX, C[i], D[i]);
   };
   // x pass and the mode's update at this thread's points of plane k (Mix:
   // of input stage j)
@@ -367,15 +436,8 @@ march(const MarchArgs g) {
       const int ly = orow + s * MROWS, gy = y0 + ly;
       if (gy < m && gx < m) {
         const int c0 = ly * HX + ocol;
-        float mx = 0.f, kx = 0.f;  // the mass taps and the stiffness taps apart
-        float mu = 0.f;            // MassStiff, Mix: M d
-#pragma unroll
-        for (int kk = 0; kk < NB; ++kk) {
-          mx = fmaf(xwm[kk], C[c0 + kk], mx);
-          kx = fmaf(xwk[kk], D[c0 + kk], kx);
-          if constexpr (MS || MIX) mu = fmaf(xwm[kk], D[c0 + kk], mu);
-        }
-        const float ad = mx + kx;
+        float mu;  // MassStiff, Mix: M d
+        const float ad = x_sums<NB, MS || MIX>(C, D, c0, xwm, xwk, mu);
         const long long gi = base + (long long)gy * m + gx;
         if constexpr (MIX) {
 #pragma unroll
@@ -392,14 +454,11 @@ march(const MarchArgs g) {
           const float rn = fk[s * NTHREADS] - ad;
           float z;
           if constexpr (G::DIAG) {
-            const float zdm = zdg[k], zdk = zdg[MZC + k];
-            const float ym = ydg[ly], yk = ydg[TY + ly];
-            const float zmym = zdm * ym;
-            z = rn / ((a * zmym + b * (zdk * ym + zdm * yk)) * xdm + (b * zmym) * xdk);
+            z = rn / jacobi_diag(a, b, zdg[k], zdg[MZC + k], ydg[ly], ydg[TY + ly], xdm, xdk);
           } else {
             z = fk[(2 * MOUT + s) * NTHREADS] * rn;
           }
-          const float dn = c1 * centre[c0] + c2 * z;
+          const float dn = cheb_d(c1, centre[c0], c2, z);
           g.out[gi] = rn;
           g.d_out[gi] = dn;
           g.x_out[gi] = fk[(MOUT + s) * NTHREADS] + dn;
@@ -477,6 +536,352 @@ int march_entry(const MarchArgs& g, int q, int p, void* stream) {
     case 2: return launch_march<2, Mode>(g, q, s);
     case 3: return launch_march<3, Mode>(g, q, s);
     case 4: return launch_march<4, Mode>(g, q, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K8 (pair_march): two ChebDiag steps per pass, with (c1a, c2a) and then
+// (c1b, c2b):
+//   r1 = r - (a_i M + b K) d;   d1 = c1a_i d + c2a_i r1 / diag;
+//   r2 = r1 - (a_i M + b K) d1; d2 = c1b_i d1 + c2b_i r2 / diag;
+//   x2 = x + d1 + d2.
+// A block owns one stage's TY x 64 (y, x) output column and marches its
+// chunk with two pipelines, stage 2 p planes behind stage 1.  Stage 1 at
+// plane z: a cp.async ring of 2p + 2 planes of d with a 2p halo in y and x,
+// ChebDiag's z, y and x passes on the tile grown by p, r at the grown
+// points (a p-haloed plane of r, two buffers), and so r1 and d1 there; d1
+// goes into a ring of 2p + 1 grown planes, exactly zero at every grown
+// point outside [0, m)^3 (planes outside the domain too), so stage 2's taps
+// read zeros there, as the Pallas kernel's pair tables and two K3dg
+// launches give; r1 at the core waits p planes in a ring of p + 1.  Stage 2
+// at plane z - p: the z pass over the d1 ring, the y and x passes on the
+// core, the step with r1, the diagonal and x, and one write of r2, d2 and
+// x2.  So d, r and x are read once and r2, d2, x2 written once: 6 field
+// passes for two steps, against 12 for two K3dg launches; stage 1 runs 2p
+// more planes per chunk than stage 2, on the tile grown by p.  Both steps
+// take ChebDiag's sums in its order (z_sums, y_sums, x_sums, jacobi_diag)
+// at the same taps and weights, so a point's r2, d2 and x2 are those of
+// two K3dg launches.  Per step six barriers: the stage-2 fields E, F, C
+// and D reuse stage 1's (dead by then).  The tile height shrinks with p so
+// that the rings fit (pair_tile below; ops/cuda/stencil.py::pair_tile).
+// ---------------------------------------------------------------------------
+
+// most z planes one K8 block marches (stencil.py PAIR_MAX_CHUNK): stage 1
+// runs 2p more planes per chunk, and at P4's 255 level chunks of 32 planes
+// took 1.718 ms against 1.769-1.774 with 16 on the H100 (PERF.md)
+constexpr int PAIR_MZC = 2 * MZC;
+
+template <int P, int TY_>
+struct PairMarch {
+  static constexpr int TY = TY_;
+  static constexpr int NB = 2 * P + 1;
+  static constexpr int GY = TY + 2 * P, GX = MX + 2 * P;  // the grown tile of stage 1
+  static constexpr int DY = TY + 4 * P, DX = MX + 4 * P;  // a plane of d, a 2p halo
+  static constexpr int DPLANE = DY * DX;
+  static constexpr int GPLANE = GY * GX;
+  static constexpr int CORE = TY * MX;
+  static constexpr int RING = 2 * P + 2;    // d planes z - p .. z + p and the next one
+  static constexpr int D1RING = 2 * P + 1;  // d1 planes of stage 2's z pass
+  static constexpr int R1RING = P + 1;      // r1 at the core: planes z - p .. z
+  static constexpr int DLOADS = (DPLANE + NTHREADS - 1) / NTHREADS;
+  static constexpr int GLOADS = (GPLANE + NTHREADS - 1) / NTHREADS;
+  static constexpr int MOUT = CORE / NTHREADS;  // core points of a thread per plane
+  static constexpr int ZC = PAIR_MZC + 2 * P;   // stage-1 planes of a chunk
+  static_assert(TY % MROWS == 0, "threads must tile the plane");
+  // shared floats: the d ring, E and F over a d plane, C and D over the
+  // grown rows, the d1 ring, two r planes, the r1 ring, x in per-thread
+  // slots for two planes, the band rows and the 1D diagonals of the chunk's
+  // stage-1 planes and the grown rows and columns (stencil.py::pair_smem_bytes)
+  static constexpr int SMEM_FLOATS = RING * DPLANE + 2 * DPLANE + 2 * GY * DX +
+                                     D1RING * GPLANE + 2 * GPLANE + R1RING * CORE + 2 * CORE +
+                                     (2 * NB + 2) * (ZC + GY + GX);
+  static constexpr bool FITS = SMEM_FLOATS * 4 <= 232448;
+  static constexpr int BLOCKS = 233472 / (SMEM_FLOATS * 4 + 1024) < 4
+                                    ? 233472 / (SMEM_FLOATS * 4 + 1024)
+                                    : 4;
+};
+
+struct PairArgs {
+  const float* d;  // (q, m, m, m) each
+  const float* r;
+  const float* x;
+  const float* mdiag;  // the level's (m,) 1D diagonals
+  const float* kdiag;
+  float* r_out;
+  float* d_out;
+  float* x_out;
+  const float* mband;  // the level's (2p + 1, m) band tables
+  const float* kband;
+  const float* a;  // (q,) each
+  const float* c1a;
+  const float* c2a;
+  const float* c1b;
+  const float* c2b;
+  float b;
+  int m;
+  int chunk;  // z planes per block, 1..PAIR_MZC
+};
+
+// the 1D diagonals (mass, stiffness) of n rows from global row r0 on, zero
+// outside [0, m)
+__device__ __forceinline__ void load_diag_rows(float* dst, const float* __restrict__ md,
+                                               const float* __restrict__ kd, int m, int r0,
+                                               int n) {
+  for (int i = threadIdx.x; i < 2 * n; i += NTHREADS) {
+    const int gi = r0 + i % n;
+    dst[i] = gi >= 0 && gi < m ? __ldg((i < n ? md : kd) + gi) : 0.f;
+  }
+}
+
+// grid (ceil(m / MX), ceil(m / TY), ceil(m / chunk) per stage, times q)
+template <int P, int TY>
+__global__ void __launch_bounds__(NTHREADS, (PairMarch<P, TY>::BLOCKS))
+pair_march(const PairArgs g) {
+  using G = PairMarch<P, TY>;
+  constexpr int NB = G::NB, GY = G::GY, GX = G::GX, DX = G::DX, ZC = G::ZC;
+  constexpr int DPLANE = G::DPLANE, GPLANE = G::GPLANE, CORE = G::CORE, MOUT = G::MOUT;
+  extern __shared__ float smem[];
+  float* ring = smem;                   // [RING][DY][DX] planes of d
+  float* E = ring + G::RING * DPLANE;   // [DY][DX]; stage 2 [GY][GX]
+  float* F = E + DPLANE;
+  float* C = F + DPLANE;                // [GY][DX]; stage 2 [TY][GX]
+  float* D = C + GY * DX;
+  float* d1 = D + GY * DX;              // [D1RING][GY][GX]
+  float* rg = d1 + G::D1RING * GPLANE;  // [step & 1][GY][GX] r at the grown points
+  float* r1 = rg + 2 * GPLANE;          // [R1RING][TY][MX]
+  float* xs = r1 + G::R1RING * CORE;    // [plane & 1][point][thread] x at the core
+  float* zw = xs + 2 * CORE;            // [mass, stiff][k][stage-1 plane]
+  float* yw = zw + 2 * NB * ZC;         // [mass, stiff][k][grown row]
+  float* xw = yw + 2 * NB * GY;         // [mass, stiff][k][grown column]
+  float* zdg = xw + 2 * NB * GX;        // [mass, stiff][stage-1 plane]
+  float* ydg = zdg + 2 * ZC;            // [mass, stiff][grown row]
+  float* xdg = ydg + 2 * GY;            // [mass, stiff][grown column]
+
+  const int tid = threadIdx.x;
+  const int m = g.m;
+  const int nch = (m + g.chunk - 1) / g.chunk;
+  const int iq = blockIdx.z / nch;
+  const int z0 = (blockIdx.z % nch) * g.chunk;
+  const int nzc = min(g.chunk, m - z0);
+  const int y0 = blockIdx.y * TY, x0 = blockIdx.x * MX;
+  const float a = g.a[iq], b = g.b;
+  const float c1a = g.c1a[iq], c2a = g.c2a[iq], c1b = g.c1b[iq], c2b = g.c2b[iq];
+  const long long mm = (long long)m * m;
+  const long long oq = iq * (long long)m * mm;
+
+  int doff[G::DLOADS], roff[G::GLOADS];
+  plane_offsets<G::DY, DX, G::DLOADS>(doff, y0 - 2 * P, x0 - 2 * P, m);
+  plane_offsets<GY, GX, G::GLOADS>(roff, y0 - P, x0 - P, m);
+  // this thread's core points: column ocol, rows orow + s * MROWS
+  const int ocol = tid % MX, orow = tid / MX;
+  const int gx = x0 + ocol;
+
+  // d plane j of the chunk (global z0 - 2p + j) into ring slot j % RING
+  auto load_d = [&](int j) {
+    const int gz = z0 - 2 * P + j;
+    const bool zin = gz >= 0 && gz < m;
+    load_plane<DPLANE, G::DLOADS>(ring + (j % G::RING) * DPLANE, g.d + oq + (zin ? gz : 0) * mm,
+                                  doff, zin);
+  };
+  // r at the grown points of stage-1 step k (global plane z0 - p + k)
+  auto load_r = [&](int k) {
+    const int gz = z0 - P + k;
+    const bool zin = gz >= 0 && gz < m;
+    load_plane<GPLANE, G::GLOADS>(rg + (k & 1) * GPLANE, g.r + oq + (zin ? gz : 0) * mm, roff,
+                                  zin);
+  };
+  // x at this thread's core points of output plane j (global z0 + j)
+  auto load_x = [&](int j) {
+    const long long base = oq + (long long)(z0 + j) * mm;
+    float* dst = xs + (j & 1) * CORE + tid;
+#pragma unroll
+    for (int s = 0; s < MOUT; ++s) {
+      const int gy = y0 + orow + s * MROWS;
+      const bool in = gy < m && gx < m;
+      cp_async4(dst + s * NTHREADS, g.x + (in ? base + (long long)gy * m + gx : 0), in);
+    }
+  };
+
+  // prologue: d planes z0 - 2p .. z0 and r of step 0 in flight, then the
+  // band rows and diagonals of the stage-1 planes, grown rows and columns
+  for (int j = 0; j <= 2 * P; ++j) load_d(j);
+  load_r(0);
+  cp_async_commit();
+  load_band_rows<ZC>(zw, g.mband, g.kband, NB, m, z0 - P);
+  load_band_rows<GY>(yw, g.mband, g.kband, NB, m, y0 - P);
+  load_band_rows<GX>(xw, g.mband, g.kband, NB, m, x0 - P);
+  load_diag_rows(zdg, g.mdiag, g.kdiag, m, z0 - P, ZC);
+  load_diag_rows(ydg, g.mdiag, g.kdiag, m, y0 - P, GY);
+  load_diag_rows(xdg, g.mdiag, g.kdiag, m, x0 - P, GX);
+  // stage 2's x weights and diagonals at this thread's column
+  float xwm[NB], xwk[NB];
+#pragma unroll
+  for (int k = 0; k < NB; ++k) {
+    xwm[k] = gx < m ? __ldg(g.mband + k * m + gx) : 0.f;
+    xwk[k] = gx < m ? __ldg(g.kband + k * m + gx) : 0.f;
+  }
+  const float xdm = gx < m ? __ldg(g.mdiag + gx) : 0.f;
+  const float xdk = gx < m ? __ldg(g.kdiag + gx) : 0.f;
+
+  // step k: stage 1 at plane z0 - p + k, stage 2 (k >= 2p) at z0 + k - 2p
+  const int nk = nzc + 2 * P;
+  for (int k = 0; k < nk; ++k) {
+    cp_async_wait_all();
+    __syncthreads();  // step k's copies are in; every thread left step k - 1
+    if (k + 1 < nk) {
+      load_d(k + 1 + 2 * P);
+      load_r(k + 1);
+      if (k + 1 >= 2 * P) load_x(k + 1 - 2 * P);
+    }
+    cp_async_commit();
+    const int z1 = z0 - P + k;
+    const bool live = z1 >= 0 && z1 < m;  // else d1 = 0 on the whole plane
+    if (live) {  // stage 1's z pass over d planes z1 - p .. z1 + p
+      const float* pl[NB];
+      float wzm[NB], wzk[NB];
+#pragma unroll
+      for (int kk = 0; kk < NB; ++kk) {
+        pl[kk] = ring + ((k + kk) % G::RING) * DPLANE;
+        wzm[kk] = zw[kk * ZC + k];
+        wzk[kk] = zw[(NB + kk) * ZC + k];
+      }
+#pragma unroll
+      for (int s = 0; s < G::DLOADS; ++s) {
+        const int i = tid + s * NTHREADS;
+        if (s + 1 < G::DLOADS || i < DPLANE) {
+          float zm, zk;
+          z_sums<NB>(pl, wzm, wzk, i, zm, zk);
+          E[i] = shifted_e(a, b, zm, zk);
+          F[i] = b * zm;
+        }
+      }
+    }
+    __syncthreads();
+    if (live)  // stage 1's y pass over the grown rows and d's x extent
+      for (int i = tid; i < GY * DX; i += NTHREADS) y_sums<NB>(E, F, yw, GY, i / DX, i, DX, C[i], D[i]);
+    __syncthreads();
+    {  // stage 1's x pass and step at the grown points: r1 (core), d1
+      const float* rk = rg + (k & 1) * GPLANE;
+      const float* centre = ring + ((k + P) % G::RING) * DPLANE;
+      float* d1k = d1 + (k % G::D1RING) * GPLANE;
+      float* r1k = r1 + (k % G::R1RING) * CORE;
+      const float zdm = zdg[k], zdk = zdg[ZC + k];
+#pragma unroll
+      for (int s = 0; s < G::GLOADS; ++s) {
+        const int i = tid + s * NTHREADS;
+        if (s + 1 < G::GLOADS || i < GPLANE) {
+          const int ly = i / GX, lx = i % GX;
+          const int gy = y0 - P + ly, gxx = x0 - P + lx;
+          float dn = 0.f;
+          if (live && gy >= 0 && gy < m && gxx >= 0 && gxx < m) {
+            float wm[NB], wk[NB], unused;
+#pragma unroll
+            for (int kk = 0; kk < NB; ++kk) {
+              wm[kk] = xw[kk * GX + lx];
+              wk[kk] = xw[(NB + kk) * GX + lx];
+            }
+            const float rn = rk[i] - x_sums<NB, false>(C, D, ly * DX + lx, wm, wk, unused);
+            const float z =
+                rn / jacobi_diag(a, b, zdm, zdk, ydg[ly], ydg[GY + ly], xdg[lx], xdg[GX + lx]);
+            dn = cheb_d(c1a, centre[(ly + P) * DX + lx + P], c2a, z);
+            if (ly >= P && ly < P + TY && lx >= P && lx < P + MX) r1k[(ly - P) * MX + lx - P] = rn;
+          }
+          d1k[i] = dn;
+        }
+      }
+    }
+    if (k >= 2 * P) {  // stage 2 at output plane j
+      const int j = k - 2 * P;
+      __syncthreads();  // d1 of plane z1 is in
+      {  // z pass over the d1 planes of steps k - 2p .. k
+        const float* pl[NB];
+        float wzm[NB], wzk[NB];
+#pragma unroll
+        for (int kk = 0; kk < NB; ++kk) {
+          pl[kk] = d1 + ((j + kk) % G::D1RING) * GPLANE;
+          wzm[kk] = zw[kk * ZC + k - P];
+          wzk[kk] = zw[(NB + kk) * ZC + k - P];
+        }
+#pragma unroll
+        for (int s = 0; s < G::GLOADS; ++s) {
+          const int i = tid + s * NTHREADS;
+          if (s + 1 < G::GLOADS || i < GPLANE) {
+            float zm, zk;
+            z_sums<NB>(pl, wzm, wzk, i, zm, zk);
+            E[i] = shifted_e(a, b, zm, zk);
+            F[i] = b * zm;
+          }
+        }
+      }
+      __syncthreads();
+      // y pass over the core rows (grown rows p ..) and the grown x extent
+      for (int i = tid; i < TY * GX; i += NTHREADS)
+        y_sums<NB>(E, F, yw + P, GY, i / GX, i, GX, C[i], D[i]);
+      __syncthreads();
+      // x pass and the second step at this thread's core points
+      const float* d1c = d1 + ((k - P) % G::D1RING) * GPLANE;
+      const float* r1c = r1 + ((k - P) % G::R1RING) * CORE;
+      const float* xk = xs + (j & 1) * CORE + tid;
+      const float zdm = zdg[k - P], zdk = zdg[ZC + k - P];
+      const long long base = oq + (long long)(z0 + j) * mm;
+#pragma unroll
+      for (int s = 0; s < MOUT; ++s) {
+        const int ly = orow + s * MROWS, gy = y0 + ly;
+        if (gy < m && gx < m) {
+          float unused;
+          const float rn = r1c[ly * MX + ocol] - x_sums<NB, false>(C, D, ly * GX + ocol, xwm, xwk,
+                                                                   unused);
+          const float z =
+              rn / jacobi_diag(a, b, zdm, zdk, ydg[P + ly], ydg[GY + P + ly], xdm, xdk);
+          const float dc = d1c[(ly + P) * GX + ocol + P];
+          const float dn = cheb_d(c1b, dc, c2b, z);
+          const long long gi = base + (long long)gy * m + gx;
+          g.r_out[gi] = rn;
+          g.d_out[gi] = dn;
+          g.x_out[gi] = xk[s * NTHREADS] + dc + dn;
+        }
+      }
+    }
+  }
+}
+
+// K8's tile height at degree P: the tallest of 16 and 8 rows whose block
+// lets two blocks share an SM, else the tallest that fits one block (16 at
+// p = 1 and 3, 8 at p = 2 and 4; stencil.py::pair_tile)
+template <int P>
+constexpr int pair_tile() {
+  return PairMarch<P, 16>::BLOCKS >= 2  ? 16
+         : PairMarch<P, 8>::BLOCKS >= 2 ? 8
+         : PairMarch<P, 16>::FITS       ? 16
+                                        : 8;
+}
+
+// a launch at another tile height than pair_tile<P>() is refused
+template <int P>
+cudaError_t launch_pair(const PairArgs& g, int q, int ty, cudaStream_t stream) {
+  constexpr int TY = pair_tile<P>();
+  using G = PairMarch<P, TY>;
+  static_assert(G::FITS, "K8's block does not fit a block's shared memory");
+  if (ty != TY) return cudaErrorInvalidValue;
+  const int bytes = G::SMEM_FLOATS * sizeof(float);
+  cudaError_t err = allow_smem(pair_march<P, TY>, bytes);
+  if (err != cudaSuccess) return err;
+  const int nch = (g.m + g.chunk - 1) / g.chunk;
+  const dim3 grid((g.m + MX - 1) / MX, (g.m + TY - 1) / TY, q * nch);
+  pair_march<P, TY><<<grid, NTHREADS, bytes, stream>>>(g);
+  return cudaGetLastError();
+}
+
+// ty: the tile height (pair_tile); p: 1..4
+inline int pair_entry(const PairArgs& g, int q, int ty, int p, void* stream) {
+  if (g.chunk < 1 || g.chunk > PAIR_MZC) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (p) {
+    case 1: return launch_pair<1>(g, q, ty, s);
+    case 2: return launch_pair<2>(g, q, ty, s);
+    case 3: return launch_pair<3>(g, q, ty, s);
+    case 4: return launch_pair<4>(g, q, ty, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -52,8 +52,9 @@ SIGNATURES = {
     "spirk_mass_stiffness_apply_2d": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # K9b: ..., q, m, nzl, z_off, chunk, p, stream
     "spirk_mass_stiffness_apply_halo": (_P,) * 5 + (_I,) * 6 + (_P,),
-    # K8: d, r, x, mdiag, kdiag, r_out, d_out, x_out, mband, kband, w (q, 6), q, m, p, stream
-    "spirk_cheb_pair_dg": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # K8 (the march's pair form): d, r, x, mdiag, kdiag, r_out, d_out, x_out, mband,
+    # kband, a, b, c1a, c2a, c1b, c2b, q, m, tile height, chunk, p, stream
+    "spirk_cheb_pair_dg": (_P,) * 11 + (_F,) + (_P,) * 4 + (_I,) * 5 + (_P,),
     # K1 (the march): u, out, mband, kband, mw, q, m, tile height, chunk, p, stream
     "spirk_ms_mix_apply": (_P,) * 5 + (_I,) * 5 + (_P,),
     # K1's route: v, u, out, mband, kband, tau, q, m, chunk, p, stream

@@ -19,10 +19,10 @@ All are bound by device memory at p=1 on the H100 (3.35 TB/s against
 against under 100 flops per point.  Each keeps every 1D intermediate in
 shared memory or registers so that it reads each input about once from
 DRAM (halo re-reads come mostly from L2) and writes each output once.  The
-3D kernels but K8 (K1, K3, K3dg, K4, K5 and their slab forms) are one z
-march (``csrc/march.cuh``): a block marches over a chunk of z planes of one
+3D kernels (K1, K3, K3dg, K4, K5, K8 and the slab forms) are one z march
+(``csrc/march.cuh``): a block marches over a chunk of z planes of one
 stage's (y, x) tile (K1: of every stage's), ``march_plan`` picks the chunk
-per launch and ``mix_tile`` K1's tile height.
+per launch, ``mix_tile`` K1's tile height and ``pair_tile`` K8's.
 
 Wrappers and their ``LAUNCHES`` keys (one per CUDA entry point; a 2D
 block counts under ``<key>_2d``), with the Pallas kernels they replace
@@ -38,9 +38,10 @@ block counts under ``<key>_2d``), with the Pallas kernels they replace
   (``_fused_cheb_canon_dg``): K3 with the Jacobi diagonal rebuilt per
   point from the level's 1D diagonals, so no D^-1 field is read;
 * K8 ``cheb_pair_dg`` — ``fused_cheb_pair_canon``: two K3dg steps in one
-  pass (stage 1 on the tile grown by p, stage 2 on the tile), 6 field
-  passes for two steps; the unsharded V-cycle takes it only when asked
-  (``cheb_pair``), as the JAX package's ``SPIRK_CHEB_PAIR`` switch does;
+  pass (the march's pair form: stage 1 on the tile grown by p, stage 2 p
+  planes behind it on the tile), 6 field passes for two steps; the
+  unsharded V-cycle takes it only when asked (``cheb_pair``), as the JAX
+  package's ``SPIRK_CHEB_PAIR`` switch does;
 * K4 ``stencil_apply`` — ``fused_stencil_apply_canon``: (a_i M + b K) u_i,
   3D and 2D (``_make_kernel_2d``);
 * K5 ``mass_stiffness_apply`` — ``fused_mass_stiffness_apply_canon`` and
@@ -79,6 +80,10 @@ QMAX = 8  # most stages the stage-coupled kernels hold (csrc/common.cuh)
 MARCH_TILE = (16, 64)
 MARCH_MAX_CHUNK = 16
 MARCH_MIN_BLOCKS = 2 * 132
+# K8's blocks run stage 1 on 2p more planes per chunk: at P4's 255 level
+# chunks of 32 planes ran 3% faster than chunks of 16 on the H100 (csrc
+# PAIR_MZC, PERF.md)
+PAIR_MAX_CHUNK = 32
 # K1's blocks each march every stage, so one per SM suffices: at P1's shape
 # chunks of 8 planes (256 blocks) ran 7% faster than chunks of 4 (512) on
 # the H100 (PERF.md)
@@ -260,22 +265,10 @@ def _check_block(ops: LevelOps, u: torch.Tensor, name: str) -> tuple[int, int, i
     return q, m, ops.p
 
 
-def _coefs(q: int, device, *cols) -> torch.Tensor:
-    """(q, len(cols)) f32 table of per-stage coefficients (K8's six), built
-    on the device (no host round trip): each column is a Python scalar, a
-    0-d or a (q,) tensor."""
-    out = []
-    for c in cols:
-        if isinstance(c, torch.Tensor):
-            out.append(c.to(device=device, dtype=torch.float32).expand(q))
-        else:
-            out.append(torch.full((q,), float(c), dtype=torch.float32, device=device))
-    return torch.stack(out, dim=1).contiguous()
-
-
 def _stage_coefs(a, q: int, device) -> torch.Tensor:
     """``a`` as the contiguous f32 (q,) table that the z march (its a, c1,
-    c2) and K4-2D read by pointer: a (q,) f32 contiguous tensor on
+    c2; K8's c1a, c2a, c1b, c2b) and K4-2D read by pointer: a (q,) f32
+    contiguous tensor on
     ``device`` as it is (no copy, no device op), any other (q,) or 0-d
     tensor converted, a Python scalar filled in."""
     if not isinstance(a, torch.Tensor):
@@ -290,19 +283,21 @@ def _stage_coefs(a, q: int, device) -> torch.Tensor:
 
 
 def march_plan(q: int, nz: int, m: int, ty: int = MARCH_TILE[0],
-               per_stage: bool = True) -> tuple[int, tuple[int, int, int]]:
+               per_stage: bool = True,
+               max_chunk: int = MARCH_MAX_CHUNK) -> tuple[int, tuple[int, int, int]]:
     """(chunk, grid) of a z-march launch over ``nz`` output planes of ``q``
     stages of m x m on ``ty`` x 64 tiles, a block per stage (K1's Mix
     mode, ``per_stage`` False: a block for every stage): the most planes a
-    block marches, a power of two up to MARCH_MAX_CHUNK, the largest that
-    leaves MARCH_MIN_BLOCKS blocks (Mix: MIX_MIN_BLOCKS; 1 where even that
-    does not), and the launch grid the kernel takes from it (x tiles, y
-    tiles, chunks, times q per stage; ``march_planes``)."""
+    block marches, a power of two up to ``max_chunk`` (K8:
+    PAIR_MAX_CHUNK), the largest that leaves MARCH_MIN_BLOCKS blocks (Mix:
+    MIX_MIN_BLOCKS; 1 where even that does not), and the launch grid the
+    kernel takes from it (x tiles, y tiles, chunks, times q per stage;
+    ``march_planes``)."""
     tx = MARCH_TILE[1]
     tiles = -(-m // tx), -(-m // ty)
     lanes = q if per_stage else 1
     least = MARCH_MIN_BLOCKS if per_stage else MIX_MIN_BLOCKS
-    chunk = MARCH_MAX_CHUNK
+    chunk = max_chunk
     while chunk > 1 and tiles[0] * tiles[1] * lanes * -(-nz // chunk) < least:
         chunk //= 2
     return chunk, (tiles[0], tiles[1], lanes * -(-nz // chunk))
@@ -317,6 +312,36 @@ def march_smem_bytes(p: int, ty: int, rings: int) -> int:
     floats = (rings * (2 * p + 2) * plane + 2 * plane + 2 * ty * hx
               + 2 * nb * MARCH_MAX_CHUNK + 2 * nb * ty)
     return 4 * floats
+
+
+def pair_smem_bytes(p: int, ty: int) -> int:
+    """Shared memory of a K8 block (csrc PairMarch<P, TY>): the ring of
+    2p + 2 planes of d with a 2p halo, the z-pass fields E and F over such a
+    plane, the y-pass fields C and D over the tile's rows grown by p, the
+    ring of 2p + 1 grown planes of d1, two grown planes of r, the ring of
+    p + 1 core planes of r1, x at the core for two planes, and the band
+    rows and 1D diagonals of a chunk's planes (up to PAIR_MAX_CHUNK) and 2p
+    more, the grown rows and the grown columns."""
+    tx = MARCH_TILE[1]
+    nb, gy, gx, dy, dx = 2 * p + 1, ty + 2 * p, tx + 2 * p, ty + 4 * p, tx + 4 * p
+    core = ty * tx
+    floats = ((2 * p + 2) * dy * dx + 2 * dy * dx + 2 * gy * dx + (2 * p + 1) * gy * gx
+              + 2 * gy * gx + (p + 1) * core + 2 * core
+              + (2 * nb + 2) * (PAIR_MAX_CHUNK + 2 * p + gy + gx))
+    return 4 * floats
+
+
+def pair_tile(p: int) -> int:
+    """K8's tile height at degree ``p``: the tallest of MIX_TILES whose block
+    lets two blocks share an SM, else the tallest that fits one block (16
+    rows at p = 1 and 3, 8 at p = 2 and 4); csrc ``pair_tile<P>`` builds
+    only this height and refuses a launch at another."""
+    for per_sm in (2, 1):
+        for ty in MIX_TILES:
+            nbytes = pair_smem_bytes(p, ty)
+            if nbytes <= BLOCK_SMEM_BYTES and per_sm * (nbytes + 1024) <= SM_SMEM_BYTES:
+                return ty
+    raise ValueError(f"no K8 tile fits one block at p={p}")
 
 
 def mix_tile(q: int, p: int) -> int:
@@ -344,18 +369,20 @@ def march_planes(nz: int, chunk: int, bz: int) -> tuple[int, int, int]:
 
 
 def _march(name: str, ops: LevelOps, q: int, nz: int, fields: tuple, a, b, cs=(),
-           slab=()) -> None:
+           slab=(), plan=None) -> None:
     """Launch the z-march entry point ``name`` over ``nz`` output planes of
     ``q`` stages: ``fields`` (the tensors before the band tables), the band
     tables, ``a`` as a (q,) table, ``b`` by value, ``cs`` (Chebyshev: c1,
-    c2) as (q,) tables (no device op where they are f32 (q,) tensors
-    already), q, m, ``slab`` (a slab's nzl, z_off), the plan's chunk, p."""
+    c2; K8: c1a, c2a, c1b, c2b) as (q,) tables (no device op where they are
+    f32 (q,) tensors already), q, m, ``slab`` (a slab's nzl, z_off), then
+    ``plan`` (K8: its tile height and chunk; by default ``march_plan``'s
+    chunk), p."""
     device = fields[0].device
     tabs = [_stage_coefs(c, q, device) for c in (a, *cs)]  # held until the launch is queued
-    chunk, _grid = march_plan(q, nz, ops.m)
+    plan = plan or (march_plan(q, nz, ops.m)[0],)
     _launch_raw(name, device, *(t.data_ptr() for t in fields), ops.mass_band.data_ptr(),
                 ops.stiff_band.data_ptr(), tabs[0].data_ptr(), float(b),
-                *(t.data_ptr() for t in tabs[1:]), q, ops.m, *slab, chunk, ops.p)
+                *(t.data_ptr() for t in tabs[1:]), q, ops.m, *slab, *plan, ops.p)
 
 
 def _launch(name: str, *args) -> None:
@@ -461,7 +488,9 @@ def cheb_iter_dg(ops: LevelOps, a, b, c1, c2, d, r, x):
 
 def cheb_pair_dg(ops: LevelOps, a, b, c1a, c2a, c1b, c2b, d, r, x):
     """K8: two Chebyshev steps in one pass, the Jacobi diagonal rebuilt per
-    point as in K3dg; returns new tensors (r'', d'', x'').  3D only."""
+    point as in K3dg; returns new tensors (r'', d'', x'').  3D only; one
+    launch of the march's pair form on ``pair_tile``'s tile, a, c1a, c2a,
+    c1b, c2b as (q,) tables, b by value."""
     if _on_cpu(d, r, x, ops.mass_band):
         return cheb_pair_dg_ref(ops, a, b, c1a, c2a, c1b, c2b, d, r, x)
     if d.ndim != 4:
@@ -472,11 +501,11 @@ def cheb_pair_dg(ops: LevelOps, a, b, c1a, c2a, c1b, c2b, d, r, x):
     for t in (ops.mass_diag, ops.stiff_diag):
         _check_field(t, (m,), "1D diagonal")
     r_out, d_out, x_out = (torch.empty_like(d) for _ in range(3))
-    w = _coefs(q, d.device, a, b, c1a, c2a, c1b, c2b)
-    _launch(
-        "spirk_cheb_pair_dg", d, r, x, ops.mass_diag, ops.stiff_diag, r_out, d_out, x_out,
-        ops.mass_band, ops.stiff_band, w, q, m, p,
-    )
+    ty = pair_tile(p)
+    chunk, _grid = march_plan(q, m, m, ty, max_chunk=PAIR_MAX_CHUNK)
+    _march("spirk_cheb_pair_dg", ops, q, m,
+           (d, r, x, ops.mass_diag, ops.stiff_diag, r_out, d_out, x_out), a, b,
+           (c1a, c2a, c1b, c2b), plan=(ty, chunk))
     LAUNCHES["cheb_pair_dg"] += 1
     return r_out, d_out, x_out
 

@@ -14,15 +14,18 @@ Each arm runs in a process of its own that imports
 ``dealii_spirk_tpu_torch`` from its tree (so it builds and launches that
 tree's kernels) and this checkout's ``chip_smoke.py``, and measures the
 MEASURE_CASES of KEYS (K3, K4, K9c, K9a, K3dg, K9d, K1, K1's split route,
-K5, K9b, or those of ``--keys``; a key that an arm's package lacks is left
-out of that arm):
+K5, K9b, K8, K5-2D, or those of ``--keys``; a key that an arm's package
+lacks is left out of that arm):
 device time per launch from ``torch.profiler``, time per call from CUDA
 events, L2-warm and L2-cold, over ``chip_smoke.TURNS`` turns, beside the
-bound; ``--check`` holds each kernel to its plain version at the measured
-shape first and takes a digest of its outputs' bytes, and the arms'
-digests of BITWISE (K3, K4, K9c, K9a, K3dg, K9d) must be equal, as
-``torch.equal`` would find them; ``--smooth`` adds the 3D smooth-field rows.  The arms'
-wrappers must take the same Python arguments.  Prints one line per arm and
+bound (K8 beside two K3dg launches); ``--check`` holds each kernel to its
+plain version at the measured shape first (K8 to ``chip_smoke.PAIR_TOL``,
+and to two K3dg launches, saying whether it equals them bit for bit) and
+takes a digest of its outputs' bytes, and the arms' digests of BITWISE
+(K3, K4, K9c, K9a, K3dg, K9d, K1, K1's split route, K5, K9b) must be
+equal, as ``torch.equal`` would find them; ``--smooth`` adds the 2D and 3D
+smooth-field rows.  The arms' wrappers must take the same Python
+arguments.  Prints one line per arm and
 case, a table, and writes every figure as JSON to ``--out``.  Needs a CUDA
 device; imports nothing of JAX.
 """
@@ -41,10 +44,11 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TAG = "AB_RESULT "
 KEYS = ("cheb_iter", "stencil_apply", "cheb_iter_halo", "stencil_apply_halo", "cheb_iter_dg",
         "cheb_iter_dg_halo", "ms_mix_apply", "ms_mix_apply_split", "mass_stiffness_apply",
-        "mass_stiffness_apply_halo")
+        "mass_stiffness_apply_halo", "cheb_pair_dg", "mass_stiffness_apply_2d")
 # kernels whose arithmetic every arm must keep bit for bit
 BITWISE = ("cheb_iter", "stencil_apply", "cheb_iter_halo", "stencil_apply_halo", "cheb_iter_dg",
-           "cheb_iter_dg_halo")
+           "cheb_iter_dg_halo", "ms_mix_apply", "ms_mix_apply_split", "mass_stiffness_apply",
+           "mass_stiffness_apply_halo")
 
 
 def digest(out) -> str:
@@ -85,12 +89,20 @@ def run_arm(tree: str, smooth: bool, check: bool, keys=KEYS) -> dict:
             c = cs._measure_setup(*case, device)
             inputs = c["make"]()
             got = c["kern"](*inputs)
-            cs._hold(f"{tree}: {case[0]} {c['at']}", got, c["plain"](*inputs), cs.REL_TOL)
+            tol = cs.PAIR_TOL if case[0] == "cheb_pair_dg" else cs.REL_TOL
+            cs._hold(f"{tree}: {case[0]} {c['at']}", got, c["plain"](*inputs), tol)
+            if c.get("twin") is not None:
+                twin = c["twin"](*inputs)
+                cs._hold(f"{tree}:   against {c['twin_name']}", got, twin, tol)
+                print(f"{tree}:   equal to {c['twin_name']} bit for bit: "
+                      f"{all(torch.equal(g, t) for g, t in zip(got, twin))}", flush=True)
+                del twin
             digests[f"{case[0]} {c['at']}"] = digest(got)
             del c, inputs, got
     out = {"tree": tree, "digests": digests, "measured": cs.measure_kernels(device, cases)}
     if smooth:
-        out["smooth"] = list(cs.smooth_rows(cs.smooth_cases_3d(device)))
+        out["smooth"] = [row for cases in (cs.smooth_cases_2d(device), cs.smooth_cases_3d(device))
+                         for row in cs.smooth_rows(cases)]
     return out
 
 

@@ -24,7 +24,14 @@ card (``chip_smoke.py``), the plan and the launch arguments are Python.
   exactly where no block holds the q rings, and ``march_smem_bytes`` is
   the shared memory ptxas reported for the Apply mode;
 * K1's library call (``chip_smoke.ms_mix_conv``, one dense conv3d) is K1's
-  function: at p = 1 in f64 it equals ``ms_mix_apply_ref``.
+  function: at p = 1 in f64 it equals ``ms_mix_apply_ref``;
+* K8 (the march's pair form): ``pair_tile`` picks 16 rows at p = 1 and 3
+  and 8 at p = 2 and 4, the tallest tile that lets two blocks share an SM,
+  else one; ``pair_smem_bytes`` is the shared memory the card's launches
+  reported; every K8 launch shape of ``chip_smoke.PAIR_CASES`` and P10's
+  covers every output plane of every stage once at its tile, and stage 1
+  runs the chunk's planes and p more at each end; the wrapper hands
+  ``spirk_cheb_pair_dg`` ``build.SIGNATURES``'s arguments in order.
 """
 
 import os
@@ -382,3 +389,90 @@ def test_k1_library_conv_is_k1(q):
     got = chip_smoke.ms_mix_conv(ops, ainv, 0.1)(u)
     assert got.shape == want.shape
     assert float((got - want).abs().max()) <= 1e-13 * float(want.abs().max())
+
+
+# K8's tile height per degree, and the dynamic shared memory of those
+# launches as the card reported it (torch.profiler's "shared memory" of
+# pair_march, NVIDIA H100 80GB HBM3, PERF.md section 6)
+PAIR_TILES = {1: 16, 2: 8, 3: 16, 4: 8}
+PAIR_SMEM = {1: 86352, 2: 82432, 3: 186832, 4: 177664}
+
+
+@pytest.mark.parametrize("p", sorted(PAIR_TILES))
+def test_pair_tile_per_degree(p):
+    ty = st.pair_tile(p)
+    assert ty == PAIR_TILES[p]
+    nbytes = st.pair_smem_bytes(p, ty)
+    assert nbytes <= st.BLOCK_SMEM_BYTES
+    two = [t for t in st.MIX_TILES
+           if 2 * (st.pair_smem_bytes(p, t) + 1024) <= st.SM_SMEM_BYTES]
+    # the tallest tile with two blocks per SM, else the tallest of one
+    assert ty == (two[0] if two else max(
+        t for t in st.MIX_TILES if st.pair_smem_bytes(p, t) <= st.BLOCK_SMEM_BYTES))
+
+
+@pytest.mark.parametrize("p", sorted(PAIR_SMEM))
+def test_pair_smem_bytes_is_the_kernels_layout(p):
+    assert st.pair_smem_bytes(p, PAIR_TILES[p]) == PAIR_SMEM[p]
+
+
+def _pair_launches() -> dict:
+    """(q, m, p) of every K8 launch of the kernels phase and of P10."""
+    shapes = {f"pair q={q} r={ref} p={p}": (q, _m(ref, p), p)
+              for q, ref, p, _timed in chip_smoke.PAIR_CASES}
+    shapes["P10"] = (PATH_LANES["P10"], _m(chip_smoke.PATHS["P10"][1]["NRefinements"], 1), 1)
+    return shapes
+
+
+PAIR_SHAPES = _pair_launches()
+
+
+@pytest.mark.parametrize("where", sorted(PAIR_SHAPES))
+def test_pair_plan_covers_every_plane_once(where):
+    """Stage 2 writes every (stage, plane) once; stage 1 runs the block's
+    planes and p more on each side (steps = planes + 2p), on the grown tile."""
+    q, m, p = PAIR_SHAPES[where]
+    ty = st.pair_tile(p)
+    chunk, grid = st.march_plan(q, m, m, ty, max_chunk=st.PAIR_MAX_CHUNK)
+    assert 1 <= chunk <= st.PAIR_MAX_CHUNK
+    assert (grid[0] - 1) * st.MARCH_TILE[1] < m <= grid[0] * st.MARCH_TILE[1]
+    assert (grid[1] - 1) * ty < m <= grid[1] * ty
+    seen, stage1 = {}, 0
+    for bz in range(grid[2]):
+        stage, z0, z1 = st.march_planes(m, chunk, bz)
+        assert 0 <= stage < q and 0 <= z0 < z1 <= m and z1 - z0 <= chunk
+        for z in range(z0, z1):
+            seen[stage, z] = seen.get((stage, z), 0) + 1
+        stage1 += (z1 - z0) + 2 * p
+    assert seen == {(i, z): 1 for i in range(q) for z in range(m)}
+    assert stage1 == q * (m + 2 * p * -(-m // chunk))
+    if grid[0] * grid[1] * q * m >= st.MARCH_MIN_BLOCKS:
+        assert grid[0] * grid[1] * grid[2] >= st.MARCH_MIN_BLOCKS
+    if where == "P10":
+        assert (chunk, grid) == (32, (4, 16, 6 * 8))
+
+
+@pytest.mark.parametrize("p", sorted(PAIR_TILES))
+def test_k8_launch_arguments(monkeypatch, p):
+    """K8: d, r, x, the 1D diagonals, r'', d'', x'', the band tables, a as a
+    (q,) table, b by value, c1a, c2a, c1b, c2b as (q,) tables (as they are:
+    no copy), q, m, the tile height, the plan's chunk, p."""
+    q = 3
+    ops = level_ops(make_level(2, p), torch.float32, "cpu")
+    m = ops.m
+    d, r, x = (torch.zeros(q, m, m, m) for _ in range(3))
+    a, c1a, c2a, c1b, c2b = (torch.linspace(lo, lo + 1, q) for lo in (1.0, 0.2, 0.1, 0.3, 0.4))
+    ((called, args),) = _k_args(monkeypatch, st.cheb_pair_dg, ops, a, 0.1, c1a, c2a, c1b, c2b,
+                                d, r, x)
+    assert called == "spirk_cheb_pair_dg"
+    sig = build.SIGNATURES[called][:-1]
+    assert len(args) == len(sig)
+    for arg, kind in zip(args, sig):
+        assert isinstance(arg, float if kind is build._F else int)
+    assert args[:3] == (d.data_ptr(), r.data_ptr(), x.data_ptr())
+    assert args[3:5] == (ops.mass_diag.data_ptr(), ops.stiff_diag.data_ptr())
+    assert args[8:12] == (ops.mass_band.data_ptr(), ops.stiff_band.data_ptr(), a.data_ptr(), 0.1)
+    assert args[12:16] == tuple(t.data_ptr() for t in (c1a, c2a, c1b, c2b))
+    ty = st.pair_tile(p)
+    chunk = st.march_plan(q, m, m, ty, max_chunk=st.PAIR_MAX_CHUNK)[0]
+    assert args[16:] == (q, m, ty, chunk, p)

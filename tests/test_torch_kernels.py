@@ -174,10 +174,13 @@ def test_wrappers_run_plain_version_on_cpu():
 
 
 def test_coefficient_table_and_device_checks():
-    tab = tst._coefs(3, "cpu", torch.tensor([1.0, 2.0, 3.0]), 0.5, torch.tensor(7.0))
-    assert tab.dtype == torch.float32 and tab.shape == (3, 3) and tab.is_contiguous()
+    # the (q,) tables every march launch (K8's five too) reads by pointer
+    tabs = [tst._stage_coefs(c, 3, torch.device("cpu"))
+            for c in (torch.tensor([1.0, 2.0, 3.0]), 0.5, torch.tensor(7.0))]
+    for tab in tabs:
+        assert tab.dtype == torch.float32 and tab.shape == (3,) and tab.is_contiguous()
     np.testing.assert_array_equal(
-        tab.numpy(), [[1.0, 0.5, 7.0], [2.0, 0.5, 7.0], [3.0, 0.5, 7.0]]
+        torch.stack(tabs, dim=1).numpy(), [[1.0, 0.5, 7.0], [2.0, 0.5, 7.0], [3.0, 0.5, 7.0]]
     )
     meta = torch.empty((2, 3, 3, 3), device="meta")
     with pytest.raises(ValueError, match="CPU or all on CUDA"):
