@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py
 
-Drives ten paths of the port through ``run_config`` on ``cuda``, each
-MatrixFree + GMG, InnerTolerance 0, OuterTolerance 1e-4, Q1, f32, dt 0.1,
-3 timesteps:
+Drives thirteen paths of the port through ``run_config`` on ``cuda``, P1-P11
+and P13 MatrixFree, InnerTolerance 0, OuterTolerance 1e-4, Q1, f32, dt 0.1,
+3 timesteps, with GMG (P13: AMG):
 
 * P1: ``irk_batched``, 3D, q=4, refinement 7 (127^3 DoFs per stage) —
   kernels K1 (the z march's Mix mode), K2, K3, K4;
@@ -36,7 +36,18 @@ MatrixFree + GMG, InnerTolerance 0, OuterTolerance 1e-4, Q1, f32, dt 0.1,
 * P10: P4 with ``cheb_pair=True`` — K8 takes the 255 level's Chebyshev
   steps two at a time (half P4's K3dg launches, no K3dg), kernel arm only:
   its plain arm would be P4's (the plain pair step is two plain K3dg
-  steps), so it is held against both of P4's arms.
+  steps), so it is held against both of P4's arms;
+* P11: ``ost`` (Crank-Nicolson, CG warm started at u^n to 1e-8 ||rhs||
+  under the f32 floor of 32 eps ||r0||, one V-cycle per CG step), 3D,
+  refinement 7 — K4 at q=1 (the rhs, the start residual and every CG
+  vmult) and the one-lane V-cycle (K3/K4);
+* P12: ``json/ost.json`` as shipped, through the port's CLI: Q4, refinement 5
+  (127^3), MatrixBased + AMG, f64, dt 0.1 to 0.5 — the plain torch dense
+  route on the card, no kernel (as the JAX package runs it through XLA),
+  held against a MatrixFree + GMG run of the same widths in f64;
+* P13: P1 with ``BlockPreconditionerType: "AMG"`` — the kernels (K1, K2,
+  K3, K4) on the aggregation levels m = 127, 64, 32, 16 (even m, the last
+  aggregate's band rows apart), the 8^3 level solved densely.
 
 Phases; any failure exits non-zero:
 
@@ -64,6 +75,8 @@ Phases; any failure exits non-zero:
    and its launches' registers and shared bytes from the profiler's
    trace, are printed), and a mesh V-cycle at P7's levels asked for pair
    steps launches no K8;
+   K3 and K4 also on AMG level tables (AMG_CASES: m = 64 and 16 at p = 1,
+   m = 32 of a Q4 hierarchy at p = 4);
 3b. measurement (``measure_kernels``, MEASURE_CASES): K2 and K4-2D at P3's
    finest shape, K4-2D at m=255, K2 at the 3D shapes of P1, P2 and P4's
    maps, K4 at P1's and P4's finest levels and K9a at P6's and P7's slabs,
@@ -73,9 +86,13 @@ Phases; any failure exits non-zero:
    K9c at P6's slab, K9d at P7's and K1's split march at P1's shape, which
    have none, K8 at P4's finest level beside two K3dg launches, and K5-2D
    at P3's finest level and m=255 beside a grouped conv2d: device time per launch from
-   ``torch.profiler``, time per call from CUDA events in turns (kernel,
+   ``torch.profiler`` (only sessions in which every timed launch left its
+   record, ``profiler_session``), time per call from CUDA events in turns (kernel,
    library, library, kernel), L2-warm and L2-cold; printed and kept in the
-   kernels line (``device_ms``, ``cold_ms``, ``measured``), not a gate;
+   kernels line (``device_ms``, ``cold_ms``, ``measured``), not a gate,
+   but a turn that reads below the DRAM bound (``sub_bound``) is printed as
+   dropped and left out, and a case whose every turn drops fails; the
+   least of the kept turns is printed with their median;
 4. per path, the kernel arm: the launch counts (all set to 0 just before
    the run, read just after) must equal what the solve structure implies
    and include every kernel of the path; L2 error < 1e-2; on a mesh the
@@ -92,7 +109,10 @@ Phases; any failure exits non-zero:
    per step within 1 of an unsharded ``irk_batched`` run's, P8's per-pair
    outer counts within 1 of an unsharded ``complex_irk_batched`` run's and
    its L2 within 1% of that run's, P9's per-pair outer and inner counts
-   within 1 of P5's.
+   within 1 of P5's, P13's L2 within 1% of P1's;
+7. P12 (``run_p12``): no launch at all, L2 < 1e-2, and its L2 within
+   P12_REL of the MatrixFree + GMG twin's: the preconditioner and the
+   operator route change the counts, not the solution.
 
 Prints the kernel summary as one JSON line, then as its last line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -148,7 +168,18 @@ PATHS = {
                "IRKStages": 5}, 4),
     "P10": (3, {**_COMMON, "NRefinements": 8, "TimeIntegrationScheme": "complex_irk_batched",
                 "IRKStages": 5}, 5),
+    "P11": (3, {**_COMMON, "NRefinements": 7, "TimeIntegrationScheme": "ost"}, 4),
+    "P13": (3, {**_COMMON, "NRefinements": 7, "TimeIntegrationScheme": "irk_batched",
+                "IRKStages": 4, "BlockPreconditionerType": "AMG"}, 4),
 }
+# P12: the shipped configuration as the file gives it (MatrixBased + AMG, Q4,
+# refinement 5, f64, dt 0.1 to 0.5), run once, and its MatrixFree + GMG twin
+P12_JSON = "json/ost.json"
+P12_TWIN = {"OperatorType": "MatrixFree", "BlockPreconditionerType": "GMG"}
+# its L2 within this share of the twin's: on the CPU at f64 the two routes'
+# L2 lie 1.4e-7, 1.1e-8 and 7.7e-9 apart at refinements 2, 3 and 4 (CG's
+# 1e-8 ||rhs|| leaves the rest; PERF.md)
+P12_REL = 1e-6
 # slots of the (stage, space) mesh, all on the one card
 SLOTS = {"P6": 10, "P7": 4, "P8": 6, "P9": 6}
 # paths run with cheb_pair=True (K8), kernel arm only: the path whose two
@@ -166,7 +197,7 @@ ARM_L2 = {"P3": 0.05}
 # within 0.004% (scripts/torch_l2_tolerance.py, PERF.md).  P8 is held to 1%
 # of the unsharded complex_irk_batched run at its widths too (run_paths).
 ORACLES = (("P5", "P2", 0.01), ("P6", "P2", 0.01), ("P8", "P2", 0.03), ("P9", "P2", 0.01),
-           ("P10", "P4", 0.01))
+           ("P10", "P4", 0.01), ("P13", "P1", 0.01))
 _ST = "dealii_spirk_tpu/ops/pallas/stencil.py"
 _SH = "dealii_spirk_tpu/ops/pallas/sharded.py"
 _CS = "dealii_spirk_tpu_torch/csrc/"
@@ -257,6 +288,14 @@ KERNEL_CASES = [
     (2, 4, 9, 2, K2D, ()),  # m = 1023
     (2, 4, 8, 3, K2D, ()),  # m = 767
     (2, 4, 8, 4, K2D, ()),  # m = 1023
+]
+# K3 and K4 on the band tables of AMG levels (solvers/amg.py): (q, degree,
+# refinement of the space, m of the level) — even m, whose last aggregate
+# is a single point and so its band rows differ from the others'
+AMG_CASES = [
+    (4, 1, 7, 64),  # P13's second level
+    (4, 1, 7, 16),
+    (4, 4, 4, 32),  # a Q4 hierarchy: 63 -> 32 -> 16 -> 8
 ]
 # the halo kernels through the sharded layer: (q, refinement, degree, space
 # slot counts, timed at one slab of the first count); one stage per stage
@@ -618,6 +657,7 @@ def check_kernels(device) -> dict:
                       bound(name, q, q, ops.m**dim, p, dim))
         del cases, libs
         torch.cuda.empty_cache()
+    check_amg_levels(device, report)
     for dim, qi, qo, ref, timed in MIX_CASES:
         m = make_level(ref, 1).m
         rng = np.random.default_rng(ref + qi + 10 * qo)
@@ -632,6 +672,26 @@ def check_kernels(device) -> dict:
             _time(report, "stage_mix", at, kern, plain, plain,
                   bound("stage_mix", qi, qo, m**dim, 1, dim))
     return report
+
+
+def check_amg_levels(device, report: dict) -> None:
+    """K3 and K4 on the band tables that ``build_amg_data`` gives an
+    aggregation level (AMG_CASES), against their plain versions."""
+    from dealii_spirk_tpu_torch.fem.grid import make_space
+    from dealii_spirk_tpu_torch.solvers.amg import build_amg_data
+
+    for q, p, ref, m in AMG_CASES:
+        amg = build_amg_data(make_space(3, p, ref), torch.float32, device)
+        ops = next(o for o in amg.level_ops if o.m == m)
+        if not ops.kernel_bands:
+            raise AssertionError(f"AMG level m={m} p={p}: its bands do not reach the kernels")
+        cases, _libs = kernel_cases(ops, q, 3, device, seed=m + p + q)
+        for name, kern, plain in cases:
+            if name in VCYCLE:
+                err = _hold(f"kernel {name:24s} AMG level 3D p={p} m={m} q={q}", kern(),
+                            plain(), REL_TOL)
+                report[name]["max_abs_err"] = max(report[name]["max_abs_err"], err)
+        del cases, amg
 
 
 def check_halo_kernels(device, report: dict) -> None:
@@ -836,63 +896,118 @@ def _time_slab(report, sops, ops, u, d, r, x, invd, a, b, c1, c2) -> None:
               bound(name, 1, 1, nzl * m * m, p, 3, halo_points=2 * p * m * m))
 
 
-def launch_attrs(fn, marker: str) -> list[dict]:
-    """The launches of ``fn`` whose kernel name holds ``marker``, as the
-    profiler's trace records them (CUPTI): grid, block, registers per thread
-    and shared memory (static and dynamic) per block."""
+def trace_events(prof) -> list[dict]:
+    """The events of a finished ``torch.profiler`` session, from its Chrome
+    trace."""
     import os
     import tempfile
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
     fd, path = tempfile.mkstemp(suffix=".json")
     os.close(fd)
     try:
         prof.export_chrome_trace(path)
         with open(path) as f:
-            events = json.load(f)["traceEvents"]
+            return json.load(f)["traceEvents"]
     finally:
         os.remove(path)
+
+
+def launch_attrs(fn, marker: str) -> list[dict]:
+    """The launches of ``fn`` whose kernel name holds ``marker``, as the
+    profiler's trace records them (CUPTI): grid, block, registers per thread
+    and shared memory (static and dynamic) per block."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
     keys = ("grid", "block", "registers per thread", "shared memory")
     return [{"name": e["name"], **{k: e.get("args", {}).get(k) for k in keys}}
-            for e in events if e.get("cat") == "kernel" and marker in e.get("name", "")]
+            for e in trace_events(prof)
+            if e.get("cat") == "kernel" and marker in e.get("name", "")]
 
 
-def _dev_us(e) -> float:
-    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+# one-element adds that open every profiler session of ``device_ms``
+# untimed: the trace holds no device record of a session's first launches
+# (on the H100, 599 and 597 of 627 sessions none of the first and second
+# primer's, 13 none of all eight; scripts/torch_profiler_records.py), so
+# those launches must not be the timed ones.  Counting them as timed read
+# the library calls' device time 10-15% low (reps calls, 17-18 recorded).
+PRIMERS = 8
+SPAN = "device_ms timed span"
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+LAUNCH_WORDS = ("aunch", "Memcpy", "Memset")  # host calls that put work on the device
+
+
+def profiler_session(fn, reps: int) -> dict:
+    """One ``torch.profiler`` session: PRIMERS untimed launches, then
+    ``reps`` calls of ``fn`` in a span of their own.  Returns the device
+    records (name, µs) of the work issued inside the span, matched to
+    their host calls by correlation id, how many such host calls there
+    were, how many of them left no record, and the places of the primers
+    that left none."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    primer = torch.zeros(1, device=torch.device("cuda", torch.cuda.current_device()))
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(PRIMERS):
+            primer.add_(1.0)
+        torch.cuda.synchronize()
+        with torch.profiler.record_function(SPAN):
+            for _ in range(reps):
+                fn()
+        torch.cuda.synchronize()
+    events = trace_events(prof)
+    span = next((e for e in events
+                 if e.get("name") == SPAN and e.get("cat") == "user_annotation"), None)
+    if span is None:
+        raise AssertionError(f"the profiler's trace holds no {SPAN!r}")
+    t0, t1 = span["ts"], span["ts"] + span["dur"]
+    records = {e.get("args", {}).get("correlation"): (e["name"], e["dur"])
+               for e in events if e.get("cat") in DEVICE_CATS}
+    issued = [(t0 <= e["ts"] <= t1, e.get("args", {}).get("correlation")) for e in events
+              if e.get("cat", "").startswith("cuda_")  # the runtime's and the CUDA API's
+              and any(w in e.get("name", "") for w in LAUNCH_WORDS)]
+    timed = [c for inside, c in issued if inside]
+    primed = [c for inside, c in issued if not inside]
+    return {"records": [records[c] for c in timed if c in records], "issued": len(timed),
+            "missing": sum(c not in records for c in timed),
+            "primers_missing": [k for k, c in enumerate(primed) if c not in records]}
 
 
 def device_ms(fn, marker: tuple[str, ...] | None, reps: int = 20) -> tuple[float | None, float]:
     """(device ms per launch of the kernels whose name holds one of
     ``marker``, or per call of every device op when ``marker`` is None;
-    device ops per call) from
-    ``torch.profiler`` over ``reps`` calls after a warm-up: the kernel
-    alone, without the host's share of the call.  A session that records
-    no device event at all is run again (at most three times: one such
-    session was seen on the card); None when no session saw the kernel."""
+    device ops per call) from ``torch.profiler`` over ``reps`` calls after
+    a warm-up: the kernel alone, without the host's share of the call.
+    Only a whole session counts, one in which every launch of the ``reps``
+    calls left its record (``profiler_session``); it is run again, at most
+    three times, and None is returned when none was whole or none saw the
+    kernel."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     for _ in range(3):
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        evs = [e for e in prof.key_averages()
-               if e.device_type != torch.autograd.DeviceType.CPU and _dev_us(e) > 0]
-        if evs:
+        session = profiler_session(fn, reps)
+        if session["records"] and not session["missing"]:
             break
-    sel = [e for e in evs if marker is None or any(mk in e.key for mk in marker)]
-    ops = sum(e.count for e in evs) / reps
+    else:
+        return None, 0.0
+    recs = session["records"]
+    sel = [us for name, us in recs if marker is None or any(mk in name for mk in marker)]
     if not sel:
-        return None, ops
-    # a kernel's time per launch over the launches the session saw (it may
-    # miss some: 16 of 20 once on the card); all device ops per call
-    per = sum(e.count for e in sel) if marker is not None else reps
-    return sum(_dev_us(e) for e in sel) / 1e3 / per, ops
+        return None, len(recs) / reps
+    return sum(sel) / 1e3 / (len(sel) if marker is not None else reps), len(recs) / reps
+
+
+def sub_bound(row: dict, bound_ms: float, set_bytes: int) -> str:
+    """Why a measurement turn cannot stand, or "" where it can: its kernel
+    device time per launch below ``bound_ms``, the least time the DRAM
+    allows, L2-cold, or L2-warm where one input set with its outputs
+    (``set_bytes``) does not fit the L2 (a smaller set may be read from
+    the L2 at a rate above the DRAM's, so its warm reading is not held)."""
+    modes = ("cold", "warm") if set_bytes > L2_CACHE_BYTES else ("cold",)
+    low = [f"{mode} {row[mode]['device_ms']:.4f} ms" for mode in modes
+           if row[mode]["device_ms"] is not None and row[mode]["device_ms"] < bound_ms]
+    return f"device time {', '.join(low)} below the bound {bound_ms:.4f} ms" if low else ""
 
 
 def _rotating(fn, sets: list):
@@ -1076,7 +1191,13 @@ def measure_kernels(device, cases=None) -> list[dict]:
     kernel alone (DEVICE_NAMES), and the library call's (two K3dg
     launches') device ops summed.
     The cold times are the ones held against the HBM bound; a case's
-    figures are the least over the turns."""
+    figures are the least over the turns that ``sub_bound`` keeps, printed
+    with the median of those turns beside it (a low reading just above the
+    bound is kept, and the least leans towards it): a turn
+    whose kernel device time lies below the bound, L2-cold, or L2-warm where
+    one input set with its outputs outgrows the L2, is impossible, so it
+    is printed as dropped and left out; a case whose every turn drops
+    fails the phase."""
     results = []
     for key, dim, qi, qo, ref in MEASURE_CASES if cases is None else cases:
         c = _measure_setup(key, dim, qi, qo, ref, device)
@@ -1132,24 +1253,37 @@ def measure_kernels(device, cases=None) -> list[dict]:
                 line += (f"; {c['twin_name']} per call warm {w_['twin_ms']:.4f}, cold "
                          f"{c_['twin_ms']:.4f}, device warm {fmt(w_['twin_device_ms'])}, cold "
                          f"{fmt(c_['twin_device_ms'])}, device ops {w_['twin_device_ops_per_call']:g}")
+            row["dropped"] = sub_bound(row, bnd[0], c["bytes"])
+            if row["dropped"]:
+                line += f"; DROPPED: {row['dropped']}"
             turns.append(row)
             say(line)
+        kept = [r for r in turns if not r["dropped"]]
+        if not kept:
+            raise AssertionError(f"measure {key} {at}: every turn read below the bound "
+                                 f"{bnd[0]:.4f} ms")
 
-        def least(mode, k):
-            vals = [r[mode][k] for r in turns if r[mode].get(k) is not None]
-            return min(vals) if vals else None
+        def least(mode, k, pick=min):
+            vals = [r[mode][k] for r in kept if r[mode].get(k) is not None]
+            return pick(vals) if vals else None
+
+        def median(mode, k):
+            return least(mode, k, lambda vals: float(np.median(vals)))
 
         res = {
             "key": key, "at": f"{at}, L2-cold over {n_sets} sets", "library": library,
             "bound_ms": bnd[0], "bound_by": bnd[1],
             "ms": least("warm", "ms"), "cold_ms": least("cold", "ms"),
             "device_ms": least("warm", "device_ms"), "cold_device_ms": least("cold", "device_ms"),
+            "median_cold_ms": median("cold", "ms"),
+            "median_device_ms": median("warm", "device_ms"),
+            "median_cold_device_ms": median("cold", "device_ms"),
             "library_ms": least("warm", "library_ms"),
             "library_cold_ms": least("cold", "library_ms"),
             "library_device_ms": least("warm", "library_device_ms"),
             "library_cold_device_ms": least("cold", "library_device_ms"),
-            "held_every_turn": all(r["held"] for r in turns) if lib is not None else None,
-            "turns": turns,
+            "held_every_turn": all(r["held"] for r in kept) if lib is not None else None,
+            "turns": turns, "dropped_turns": len(turns) - len(kept),
         }
         if twin is not None:
             res |= {"twin": c["twin_name"], "twin_ms": least("warm", "twin_ms"),
@@ -1157,10 +1291,12 @@ def measure_kernels(device, cases=None) -> list[dict]:
                     "twin_device_ms": least("warm", "twin_device_ms"),
                     "twin_cold_device_ms": least("cold", "twin_device_ms")}
         say(f"measure {key} {at}: bound {bnd[0]:.4f} ms ({bnd[1]}); L2-cold per call "
-            f"{res['cold_ms']:.4f} ms (bound / time {bnd[0] / res['cold_ms']:.3f}), on the device "
-            f"{fmt(res['cold_device_ms'])} ms"
+            f"{res['cold_ms']:.4f} ms (bound / time {bnd[0] / res['cold_ms']:.3f}; median "
+            f"{res['median_cold_ms']:.4f}), on the device {fmt(res['cold_device_ms'])} ms"
             + ("" if res["cold_device_ms"] is None
-               else f" (bound / time {bnd[0] / res['cold_device_ms']:.3f})")
+               else f" (bound / time {bnd[0] / res['cold_device_ms']:.3f}; median "
+                    f"{fmt(res['median_cold_device_ms'])})")
+            + f" over {len(kept)} kept turns"
             + ("" if lib is None else
                f"; at or below the library in every turn: {res['held_every_turn']}")
             + ("" if twin is None else
@@ -1394,6 +1530,87 @@ def run_path(device, name: str, kernels: bool, **over):
                       slots=SLOTS.get(name), cheb_pair=name in PAIR_STEPPED)
 
 
+def run_p12(device, smi: str) -> dict:
+    """P12: ``json/ost.json`` run as shipped through the port's CLI
+    (``__main__.main``: MatrixBased + AMG, so the plain dense route and no
+    kernel), its AMG setup timed inside that run (the scheme's construction,
+    which builds the hierarchy, and its first preconditioner state, the
+    Lanczos ``gmg_reinit`` of step 1), then its MatrixFree + GMG twin at the
+    same widths in f64; returns P12's launch counts (all zero)."""
+    import dealii_spirk_tpu_torch.__main__ as cli
+    from dealii_spirk_tpu_torch import runner
+    from dealii_spirk_tpu_torch.config import Parameters
+    from dealii_spirk_tpu_torch.ops.cuda import stencil as st
+
+    setup, runs = {}, []
+
+    def timed(key, fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            setup.setdefault(key, (time.perf_counter() - t0) * 1e3)
+            return out
+        return call
+
+    def make_scheme(*args, **kwargs):
+        scheme = timed("construction (build_amg_data)", runner_make_scheme)(*args, **kwargs)
+        scheme._reinit = timed("first gmg_reinit", scheme._reinit)
+        return scheme
+
+    def run_config(*args, **kwargs):
+        runs.append(cli_run_config(*args, **kwargs))
+        return runs[-1]
+
+    cli_run_config, runner_make_scheme = cli.run_config, runner.make_scheme
+    outs = {}
+    for arm in ("P12", "twin"):
+        t0 = time.perf_counter()
+        st.reset_launches()
+        if arm == "P12":
+            cli.run_config, runner.make_scheme = run_config, make_scheme
+            try:
+                rc = cli.main(["--device", str(device), "--no-phase-timers", P12_JSON])
+            finally:
+                cli.run_config, runner.make_scheme = cli_run_config, runner_make_scheme
+            if rc != 0 or len(runs) != 1:
+                raise AssertionError(f"the CLI on {P12_JSON} returned {rc} after {len(runs)} runs")
+            out = runs.pop()
+            say(f"P12 AMG setup inside the run on {smi}: "
+                + ", ".join(f"{k} {v:.3f} ms" for k, v in setup.items()))
+        else:
+            with open(P12_JSON) as f:
+                params = Parameters.from_dict({**json.load(f), **P12_TWIN}, dim=3)
+            out = runner.run_config(params, device=device, verbose=False)
+        launches = dict(st.LAUNCHES)
+        scheme = out["scheme"]
+        say(f"{arm} ({P12_JSON}{' + ' + str(P12_TWIN) if arm == 'twin' else ', the CLI'}): "
+            f"mode {scheme.mode}, {scheme.dtype}, kernels {scheme.kernels}, "
+            f"{out['n_timesteps']} steps, levels m = {[o.m for o in scheme.gmg.level_ops]}; "
+            f"CG counts per step {[s['n_outer'] for s in scheme.step_log]}; step times "
+            f"(steps >= 2) on {smi}: {[f'{t * 1e3:.3f} ms' for t in out['step_seconds']]}; "
+            f"L2 {out['error_L2']:.9e}, Linf {out['error_Linf']:.9e}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        if any(launches.values()):
+            raise AssertionError(f"{arm} ran plain torch, yet launched {launches}")
+        if not (out["error_L2"] < 1e-2 and np.isfinite(out["error_Linf"])):
+            raise AssertionError(f"{arm} solution error off: L2={out['error_L2']}")
+        outs[arm] = (out["error_L2"], launches)
+        del out, scheme
+        gc.collect()
+        torch.cuda.empty_cache()
+    if len(setup) != 2:
+        raise AssertionError(f"P12's AMG setup went untimed: {setup}")
+    (l2, launches), (l2_twin, _) = outs["P12"], outs["twin"]
+    rel = abs(l2 - l2_twin) / l2_twin
+    say(f"P12 L2 {l2:.9e} vs the MatrixFree + GMG twin {l2_twin:.9e}: relative {rel:.3e} "
+        f"(tol {P12_REL:g})")
+    if rel > P12_REL:
+        raise AssertionError("P12 and its MatrixFree + GMG twin disagree on the error")
+    return launches
+
+
 def _smoother_launches(scheme, n_vcycle: int, want: dict) -> None:
     """Per V-cycle, on each smoothed level: 3D two smooths of 4 fused
     Chebyshev steps (K3, or K3dg on ``cheb_diag_level`` levels, or with
@@ -1475,12 +1692,22 @@ def expected_launches(out) -> dict:
       application is one 2 n2-lane V-cycle (batched) or PRESB's two n2-lane
       V-cycles and one K4 (``M x0``);
     * on a mesh (``spirk``, ``complex_spirk(_batched)``): ``_mesh_launches``,
-      and for the pair schemes the two unsharded K2 maps per step."""
+      and for the pair schemes the two unsharded K2 maps per step;
+    * ``ost``: per step a K4 for the rhs and one for CG's start residual,
+      per CG iteration a K4 vmult, and one-lane V-cycles, one per iteration
+      and one at the start."""
     from dealii_spirk_tpu_torch.ops.cuda import stencil as st
 
     scheme = out["scheme"]
     want = dict.fromkeys(st.LAUNCHES, 0)
     n_vmult = n_app = n_vcycle = 0
+    if scheme.params.time_integration_scheme == "ost":
+        apply = "stencil_apply" + ("" if scheme.dim == 3 else "_2d")
+        for s in scheme.step_log:
+            want[apply] += 2 + s["n_outer"]
+            n_vcycle += 1 + s["n_outer"]
+        _smoother_launches(scheme, n_vcycle, want)
+        return want
     if scheme.mesh is not None:
         if hasattr(scheme, "n_pairs"):
             want["stage_mix"] = 2 * len(scheme.step_log)
@@ -1606,6 +1833,11 @@ def kernel_arm(device, name: str):
     exchange, planes = dict(sh.EXCHANGE), sh.HALO_MAX_PLANES["planes"]
     scheme = out["scheme"]
     L = len(scheme.gmg.level_ops) - 1
+    if scheme.params.block_preconditioner_type == "AMG":
+        # the kernels take the aggregation levels' bands as they take GMG's
+        bad = [o.m for o in scheme.gmg.level_ops if not o.kernel_bands]
+        if bad:
+            raise AssertionError(f"{name}: AMG levels m = {bad} do not reach the kernels")
     say(f"{name} (kernels): {out['n_timesteps']} steps, smoothed levels L={L} "
         f"(m = {[o.m for o in scheme.gmg.level_ops[1:]]}, coarse m={scheme.gmg.level_ops[0].m})")
     for i, s in enumerate(scheme.step_log, 1):
@@ -1642,7 +1874,7 @@ def kernel_arm(device, name: str):
 def _counts(s: dict, pairs: bool) -> list[int]:
     if pairs:
         return list(s["n_outer_pair"]) + [n for lane in s["n_inner_pair"] for n in lane]
-    return [s["n_outer"]] + list(s["n_inner_stage"])
+    return [s["n_outer"]] + list(s.get("n_inner_stage", ()))  # ost: CG's count only
 
 
 def _hold_arms(a: dict, b: dict) -> None:
@@ -1764,6 +1996,7 @@ def run_paths(device, smi: str) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     check_pair_stepped(launches, records)
+    launches["P12"] = run_p12(device, smi)
     for name, ref in PAIR_STEPPED.items():
         say(f"{ref} vs {name} (K3dg vs K8 on the 255 level) per-step ms, one run, on {smi}: "
             f"{times[ref]} vs {times[name]}")

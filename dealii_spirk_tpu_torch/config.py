@@ -132,7 +132,8 @@ class Parameters:
         the JAX package, whose Pallas kernels these replace; 2D and 3D,
         degrees 1-4); every other case runs the plain torch operators
         (``"stencil"``).  MatrixBased
-        maps to ``"dense"``, which the port does not run yet.  An
+        maps to ``"dense"``: the plain torch operators on the levels' dense
+        1D matrices, never the kernels.  An
         ``OperatorMode`` key in the JSON overrides the choice."""
         if self.operator_mode_override:
             return self.operator_mode_override

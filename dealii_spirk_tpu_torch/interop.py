@@ -26,13 +26,21 @@ def _t(a, dtype, device) -> torch.Tensor:
 
 
 def level_ops_from_numpy(
-    mass_band, stiff_band, mass_diag, stiff_diag, *, dtype=torch.float64, device="cpu"
+    mass_band, stiff_band, mass_diag, stiff_diag, mass_dense=None, stiff_dense=None, *,
+    dtype=torch.float64, device="cpu"
 ) -> LevelOps:
+    """A level's operators; with ``mass_dense`` and ``stiff_dense`` (not
+    None) its dense MatrixBased route too."""
+    def opt(a):
+        return None if a is None else _t(a, dtype, device)
+
     return LevelOps(
         mass_band=_t(mass_band, dtype, device),
         stiff_band=_t(stiff_band, dtype, device),
         mass_diag=_t(mass_diag, dtype, device),
         stiff_diag=_t(stiff_diag, dtype, device),
+        mass_dense=opt(mass_dense),
+        stiff_dense=opt(stiff_dense),
     )
 
 
@@ -46,7 +54,10 @@ def gmg_data_from_numpy(
     device="cpu",
 ) -> GMGData:
     """``level_ops``: per level (coarse -> fine) the arrays
-    ``(mass_band, stiff_band, mass_diag, stiff_diag)``."""
+    ``(mass_band, stiff_band, mass_diag, stiff_diag)``, and optionally
+    ``mass_dense, stiff_dense`` (None where the level has no dense route).
+    The hierarchy may be geometric or algebraic (the JAX package's
+    ``build_amg_data``): the coarse matrices are taken as given."""
     return GMGData(
         level_ops=tuple(
             level_ops_from_numpy(*lv, dtype=dtype, device=device) for lv in level_ops

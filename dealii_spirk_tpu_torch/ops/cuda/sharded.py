@@ -53,7 +53,7 @@ def shard_level(ops: LevelOps, mesh: SlotMesh, dim: int = 3) -> ShardedLevel:
     if dim == 2:
         if mesh.n_space != 1:
             raise ValueError("a 2D level takes a mesh of one space column")
-        grid = tuple((_on(ops, mesh.device(i, 0)),) for i in range(mesh.n_stage))
+        grid = tuple((ops.to(mesh.device(i, 0)),) for i in range(mesh.n_stage))
         return ShardedLevel(mesh, grid, ops.m, ops.p, 2)
     cuts = z_partition(ops.m, mesh.n_space)
     grid = tuple(
@@ -63,11 +63,6 @@ def shard_level(ops: LevelOps, mesh: SlotMesh, dim: int = 3) -> ShardedLevel:
         for i in range(mesh.n_stage)
     )
     return ShardedLevel(mesh, grid, ops.m, ops.p)
-
-
-def _on(ops: LevelOps, device) -> LevelOps:
-    return LevelOps(*(t.to(device) for t in (ops.mass_band, ops.stiff_band, ops.mass_diag,
-                                              ops.stiff_diag)))
 
 
 def _take(t: torch.Tensor, h: int, top: bool) -> torch.Tensor:

@@ -125,7 +125,7 @@ def reset_launches() -> None:
 
 
 def stencil_apply_ref(ops: LevelOps, a, b, u: torch.Tensor) -> torch.Tensor:
-    """(a_i M + b K) u_i per stage."""
+    """(a_i M + b K) u_i per stage (by the level's route, ``mass_laplace``)."""
     return apply_shifted_batched(ops, a, b, u, u.ndim - 1)
 
 

@@ -1,11 +1,20 @@
 """The a*M + b*K operator family on the tensor-product grid, plain torch.
 
-Port of ``dealii_spirk_tpu/ops/mass_laplace.py`` in its "stencil"
-(MatrixFree) mode: banded roll-and-scale sweeps along each spatial axis,
-with the same shared 1D intermediates and operation order as the JAX
-package.  The "dense" (MatrixBased) mode is not ported yet.  The
-hand-written CUDA kernels of the main path live in ``ops/cuda/stencil.py``;
-this module is the plain torch path they are checked against.
+Port of ``dealii_spirk_tpu/ops/mass_laplace.py``: the same shared 1D
+intermediates and operation order as the JAX package, each 1D apply along
+an axis by one of two routes (``LevelOps.mode``):
+
+* ``"stencil"`` (MatrixFree): banded roll-and-scale sweeps
+  (``apply_band``);
+* ``"dense"`` (MatrixBased): a dense 1D contraction (``apply_dense_1d``)
+  with the level's (m, m) ``mass_dense`` / ``stiff_dense``, as the JAX
+  package contracts with XLA's dot.  It runs no CUDA kernel there or here.
+
+Both give the same result.  A level takes the dense route where it carries
+its dense matrices (``level_ops(..., with_dense=True)``, which a
+MatrixBased scheme builds), else the banded one.  The hand-written CUDA kernels of MatrixFree live in
+``ops/cuda/stencil.py``; this module is the plain torch path they are
+checked against.
 
 Parity with the reference's L3 layer:
 
@@ -13,18 +22,20 @@ Parity with the reference's L3 layer:
   (reference ``operator.h:15-100``)
 * ``operator_diagonal`` <-> ``compute_inverse_diagonal`` (reference
   ``operator.h:311-329``) — exact, via Kronecker structure.
+* ``apply_complex`` <-> ``ComplexMassLaplaceOperatorMatrixFree::vmult``
+  (reference ``operator.h:593-666``), acting on a (re, im) pair block.
 * ``*_batched`` <-> the reference's ``BatchedMassLaplaceOperator``
   (``operator.h:701-881``): a leading stage axis with per-stage shifts.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, fields, replace
 
 import torch
 
 from ..fem.grid import Level1D
-from .banded import apply_band
+from .banded import apply_band, apply_dense_1d
 
 
 @dataclass(frozen=True)
@@ -35,13 +46,19 @@ class LevelOps:
     stiff_band: torch.Tensor  # (2p+1, m)
     mass_diag: torch.Tensor  # (m,)
     stiff_diag: torch.Tensor  # (m,)
+    # the dense 1D matrices (m, m) of the MatrixBased route; None without it
+    mass_dense: torch.Tensor | None = None
+    stiff_dense: torch.Tensor | None = None
     # One z slab of a 3D level split over the space axis of a mesh
     # (``slab_ops``): its first global plane, and the band rows of its haloed
-    # planes (2p+1, nzl + 2p), which the plain operators take along z.  None
-    # on a whole level.
+    # planes (2p+1, nzl + 2p), which the plain operators take along z, and
+    # with the dense route the dense blocks (nzl + 2p, nzl + 2p) of those
+    # planes.  None on a whole level.
     z_off: int = 0
     z_mass_band: torch.Tensor | None = None
     z_stiff_band: torch.Tensor | None = None
+    z_mass_dense: torch.Tensor | None = None
+    z_stiff_dense: torch.Tensor | None = None
     # whether the CUDA kernels take these bands (f32, contiguous, on one
     # device, degree 1-4): checked once here, read by the kernel wrappers
     kernel_bands: bool = field(init=False, repr=False, compare=False)
@@ -60,8 +77,24 @@ class LevelOps:
     def p(self) -> int:
         return (self.mass_band.shape[0] - 1) // 2
 
+    @property
+    def mode(self) -> str:
+        """The route of the 1D applies: "dense" where the level carries its
+        dense matrices, else "stencil"."""
+        return "stencil" if self.mass_dense is None else "dense"
 
-def level_ops(level: Level1D, dtype=torch.float64, device="cpu") -> LevelOps:
+    def to(self, device) -> LevelOps:
+        """These operators with every tensor on ``device``."""
+        return replace(self, **{
+            f.name: getattr(self, f.name).to(device) for f in fields(self)
+            if f.init and isinstance(getattr(self, f.name), torch.Tensor)
+        })
+
+
+def level_ops(level: Level1D, dtype=torch.float64, device="cpu",
+              with_dense: bool = False) -> LevelOps:
+    """The level's operators on ``device``; ``with_dense``: with its dense
+    1D matrices too (the MatrixBased route)."""
     def t(a):
         return torch.as_tensor(a, dtype=dtype, device=device).contiguous()
 
@@ -70,6 +103,8 @@ def level_ops(level: Level1D, dtype=torch.float64, device="cpu") -> LevelOps:
         stiff_band=t(level.stiff_band),
         mass_diag=t(level.mass_diag),
         stiff_diag=t(level.stiff_diag),
+        mass_dense=t(level.mass_dense) if with_dense else None,
+        stiff_dense=t(level.stiff_dense) if with_dense else None,
     )
 
 
@@ -77,7 +112,10 @@ def slab_ops(ops: LevelOps, z_off: int, nzl: int, device=None) -> LevelOps:
     """``ops`` for the slab of planes ``z_off .. z_off + nzl`` with a p-plane
     halo on either side, on ``device``: haloed plane j is global plane
     ``z_off - p + j`` and takes that row of the bands (zero weights where it
-    lies outside the domain; a halo plane's own output is dropped)."""
+    lies outside the domain; a halo plane's own output is dropped).  A
+    level with the dense route takes the dense block of the haloed planes
+    along z (zero rows and columns outside the domain): an own plane's row
+    holds all its 2p + 1 couplings, since the bandwidth is p."""
     p, m = ops.p, ops.m
     device = ops.mass_band.device if device is None else device
     rows = torch.arange(z_off - p, z_off + nzl + p)
@@ -88,14 +126,19 @@ def slab_ops(ops: LevelOps, z_off: int, nzl: int, device=None) -> LevelOps:
     def cut(band):
         return (band[:, rows] * inside).to(device).contiguous()
 
-    return LevelOps(
-        mass_band=ops.mass_band.to(device),
-        stiff_band=ops.stiff_band.to(device),
-        mass_diag=ops.mass_diag.to(device),
-        stiff_diag=ops.stiff_diag.to(device),
+    def block(mat):
+        if mat is None:
+            return None
+        keep = inside[:, None] & inside[None, :]
+        return (mat[rows][:, rows] * keep).to(device).contiguous()
+
+    return replace(
+        ops.to(device),
         z_off=z_off,
         z_mass_band=cut(ops.mass_band),
         z_stiff_band=cut(ops.stiff_band),
+        z_mass_dense=block(ops.mass_dense),
+        z_stiff_dense=block(ops.stiff_dense),
     )
 
 
@@ -103,23 +146,27 @@ def _spatial_axes(u_ndim: int, dim: int) -> tuple[int, ...]:
     return tuple(range(u_ndim - dim, u_ndim))
 
 
-def _band(whole, z_slab, u, axis: int):
-    # a slab's z axis (3D, third from last) takes its own band rows
+def _slab(whole, z_slab, u, axis: int):
+    # a slab's z axis (3D, third from last) takes its own band rows / block
     return whole if z_slab is None or axis % u.ndim != u.ndim - 3 else z_slab
 
 
-def _m(ops: LevelOps, u, axis: int):
-    return apply_band(_band(ops.mass_band, ops.z_mass_band, u, axis), u, axis)
-
-
-def _k(ops: LevelOps, u, axis: int):
-    return apply_band(_band(ops.stiff_band, ops.z_stiff_band, u, axis), u, axis)
+def _apply_1d(ops: LevelOps, which: str, u, axis: int):
+    """M1 (``which`` "m") or K1 ("k") along ``axis`` by the level's route."""
+    mass = which == "m"
+    if ops.mode == "dense":
+        mat = _slab(ops.mass_dense if mass else ops.stiff_dense,
+                    ops.z_mass_dense if mass else ops.z_stiff_dense, u, axis)
+        return apply_dense_1d(mat, u, axis)
+    band = _slab(ops.mass_band if mass else ops.stiff_band,
+                 ops.z_mass_band if mass else ops.z_stiff_band, u, axis)
+    return apply_band(band, u, axis)
 
 
 def apply_mass(ops: LevelOps, u: torch.Tensor, dim: int) -> torch.Tensor:
     """M u = (M1 (x) ... (x) M1) u; leading axes of ``u`` are batch."""
     for ax in _spatial_axes(u.ndim, dim):
-        u = _m(ops, u, ax)
+        u = _apply_1d(ops, "m", u, ax)
     return u
 
 
@@ -128,10 +175,10 @@ def apply_stiffness(ops: LevelOps, u: torch.Tensor, dim: int) -> torch.Tensor:
     axes = _spatial_axes(u.ndim, dim)
     out = None
     for k_ax in axes:
-        term = _k(ops, u, k_ax)
+        term = _apply_1d(ops, "k", u, k_ax)
         for ax in axes:
             if ax != k_ax:
-                term = _m(ops, term, ax)
+                term = _apply_1d(ops, "m", term, ax)
         out = term if out is None else out + term
     return out
 
@@ -141,21 +188,28 @@ def apply_shifted(ops: LevelOps, a, b, u: torch.Tensor, dim: int) -> torch.Tenso
     3D).  ``a`` and ``b`` are scalars or tensors that broadcast against
     ``u`` (``apply_shifted_batched`` passes per-stage ``a``)."""
     axes = _spatial_axes(u.ndim, dim)
+
+    def m(t, ax):
+        return _apply_1d(ops, "m", t, ax)
+
+    def k(t, ax):
+        return _apply_1d(ops, "k", t, ax)
+
     if dim == 2:
         ax_x, ax_y = axes
-        A = _m(ops, u, ax_y)
-        B = _k(ops, u, ax_y)
-        out = _m(ops, a * A + b * B, ax_x)
-        return out + b * _k(ops, A, ax_x)
+        A = m(u, ax_y)
+        B = k(u, ax_y)
+        out = m(a * A + b * B, ax_x)
+        return out + b * k(A, ax_x)
     if dim == 3:
         ax_x, ax_y, ax_z = axes
-        A = _m(ops, u, ax_z)
-        B = _k(ops, u, ax_z)
-        C = _m(ops, A, ax_y)
-        D = _k(ops, A, ax_y)
-        E = _m(ops, B, ax_y)
-        out = _m(ops, a * C + b * (D + E), ax_x)
-        return out + b * _k(ops, C, ax_x)
+        A = m(u, ax_z)
+        B = k(u, ax_z)
+        C = m(A, ax_y)
+        D = k(A, ax_y)
+        E = m(B, ax_y)
+        out = m(a * C + b * (D + E), ax_x)
+        return out + b * k(C, ax_x)
     raise ValueError("dim must be 2 or 3")
 
 
@@ -179,6 +233,19 @@ def apply_shifted_batched(ops: LevelOps, a_vec, b, W: torch.Tensor, dim: int) ->
     """Per-stage (a_i M + b K) W_i — the reference's batched operator
     (``operator.h:701-881``).  ``a_vec``: (q,), ``W``: (q, *spatial)."""
     return apply_shifted(ops, per_stage(a_vec, W), b, W, dim)
+
+
+def apply_complex(ops: LevelOps, d_re, d_im, tau, z: torch.Tensor, dim: int) -> torch.Tensor:
+    """2x2 real-block form of ((d_re + i d_im) M + tau K) on z = (re, im),
+    ``z`` of shape (2, *spatial) (the fused complex cell loop, reference
+    ``operator.h:616-660``):
+
+        out_re = d_re M re - d_im M im + tau K re
+        out_im = d_im M re + d_re M im + tau K im
+    """
+    s = apply_shifted(ops, d_re, tau, z, dim)  # batch over (re, im)
+    mz = apply_mass(ops, z, dim)
+    return s + torch.stack([-d_im * mz[1], d_im * mz[0]])
 
 
 def operator_diagonal(ops: LevelOps, a, b, dim: int) -> torch.Tensor:

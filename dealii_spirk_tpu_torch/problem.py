@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from .config import Parameters
-from .fem.functions import WAVE, solution_time_factor
+from .fem.functions import WAVE, rhs_time_factor, solution_time_factor
 from .fem.grid import Space, make_space
 from .ops.banded import apply_dense_1d
 
@@ -70,6 +70,11 @@ class HeatProblem:
         for _ in range(self.space.dim - 1):
             out = torch.tensordot(out, self._load_1d, dims=0)
         return out
+
+    def rhs(self, t: float) -> torch.Tensor:
+        """The load vector F(t) = g(t) F0 on the grid (JAX ``rhs``)."""
+        tt = torch.tensor([t], dtype=self.dtype, device=self.device)
+        return self.stage_load(rhs_time_factor(tt, self.space.dim))[0]
 
     def initial_condition(self) -> torch.Tensor:
         return self.u0

@@ -43,6 +43,14 @@ def run_config(
         table = ConvergenceTable()
     say = print if verbose else (lambda *a, **k: None)
 
+    if params.block_preconditioner_type == "AMG":
+        # reference preconditioner.h:176-215 wraps Trilinos ML; the port,
+        # as the JAX package, builds a plain-aggregation hierarchy
+        # (solvers/amg.py): its counts are the JAX package's, not ML's
+        say("NOTE: BlockPreconditionerType 'AMG' runs the plain-aggregation hierarchy "
+            "(solvers/amg.py), not Trilinos ML: iteration counts are the JAX package's, "
+            "not ML's; see PARITY.md.")
+
     problem = HeatProblem(params, device)
     sp = problem.space
     if params.is_stage_parallel and mesh is None:

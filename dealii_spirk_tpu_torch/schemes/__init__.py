@@ -1,8 +1,6 @@
 """Time-integration schemes (the reference's L5 layer, main.cc:450-2937).
 
-Port of ``dealii_spirk_tpu/schemes``.  Every scheme but ``ost`` is ported;
-``ost`` raises ``NotImplementedError`` naming the ROADMAP queue item that
-ports it.
+Port of ``dealii_spirk_tpu/schemes``: every scheme of the JAX package.
 """
 
 from __future__ import annotations
@@ -10,19 +8,20 @@ from __future__ import annotations
 from ..config import Parameters
 from ..problem import HeatProblem
 
-_NOT_YET = {
-    "ost": "ROADMAP Queue 1 item 10",
-}
-
 
 def make_scheme(problem: HeatProblem, params: Parameters, *, mesh=None, **options):
     """The scheme object of ``params`` on the problem's device.  ``mesh``:
     the (stage, space) slot mesh of a stage-parallel scheme
     (``parallel.make_mesh``; default one slot per stage row: q for
     ``spirk``, ceil(q/2) pairs for ``complex_spirk(_batched)``).
-    ``options`` go to the constructor (``kernels``, ``tables``, ``start``,
-    ``cheb_pair``: see ``base.RadauScheme``)."""
+    ``options`` go to the constructor (``kernels``, ``start``,
+    ``cheb_pair``: see ``base.SchemeBase``; ``tables`` for the Radau
+    schemes: ``base.RadauScheme``)."""
     name = params.time_integration_scheme
+    if name == "ost":
+        from .ost import OneStepTheta
+
+        return OneStepTheta(problem, params, **options)
     if name in ("irk", "irk_batched", "spirk"):
         from .irk import IRK
 
@@ -32,8 +31,4 @@ def make_scheme(problem: HeatProblem, params: Parameters, *, mesh=None, **option
 
         return ComplexIRK(problem, params, mesh=mesh if params.is_stage_parallel else None,
                           **options)
-    if name in _NOT_YET:
-        raise NotImplementedError(
-            f"scheme {name!r} is not ported yet: {_NOT_YET[name]}"
-        )
     raise ValueError(f"unknown scheme {name!r}")

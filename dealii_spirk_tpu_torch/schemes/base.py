@@ -23,6 +23,7 @@ from ..ops.mass_laplace import apply_stiffness
 from ..parallel.mesh import SlotMesh, make_mesh
 from ..parallel.sharding import canon_shardable
 from ..problem import HeatProblem
+from ..solvers.amg import build_amg_data
 from ..solvers.gmg import build_gmg_data
 from ..solvers.krylov import COMPACT_BASIS, COMPACT_GRID_DOFS
 from ..tables import IRKTables, irk_tables
@@ -33,28 +34,47 @@ GMRES_RESTART = 28  # deal.II's default basis (30 temporary vectors)
 
 class SchemeBase:
     def __init__(self, problem: HeatProblem, params: Parameters, *,
+                 kernels: bool | None = None, start=None, cheb_pair: bool | None = None,
                  phase_timers: bool = False):
-        """``phase_timers``: also time the system vmult and the
+        """The multigrid hierarchy of ``BlockPreconditionerType`` (GMG, or
+        the plain-aggregation AMG of ``solvers/amg.py``; JAX
+        ``schemes/base.py:27-43``), each level with its dense matrices in
+        MatrixBased mode (``operator_mode`` "dense": every plain operator
+        then takes the dense route).
+        ``kernels``: run the hand-written kernels (default: when the
+        configuration's operator mode on this device is "pallas";
+        MatrixBased never does, as the JAX package never routes it to
+        Pallas).
+        ``start``: Lanczos start vectors for ``gmg_reinit``.
+        ``cheb_pair``: let the unsharded kernel V-cycles take two Chebyshev
+        steps per K8 launch (``gmg.vcycle``; default ``config.CHEB_PAIR``,
+        off unless ``SPIRK_CHEB_PAIR=1``).
+        ``phase_timers``: also time the system vmult and the
         preconditioner's basis changes and block solves in place
         (``PhaseTimers(inner=True)``); off, their columns read "-"."""
-        if params.block_preconditioner_type == "AMG":
-            raise NotImplementedError(
-                "BlockPreconditionerType AMG is not ported yet (ROADMAP "
-                "Queue 1 item 14); use GMG"
-            )
         self.problem = problem
         self.params = params
         self.dim = problem.space.dim
         self.dtype = problem.dtype
         self.device = problem.device
-        self.gmg = build_gmg_data(problem.space, dtype=self.dtype, device=self.device)
+        self.mode = params.operator_mode(self.device)
+        if self.mode == "dense" and kernels:
+            raise ValueError("MatrixBased runs the plain dense operators, not the kernels")
+        self.kernels = self.mode == "pallas" if kernels is None else kernels
+        build = build_amg_data if params.block_preconditioner_type == "AMG" else build_gmg_data
+        self.gmg = build(problem.space, dtype=self.dtype, device=self.device,
+                         with_dense=self.mode == "dense")
         self.fine = self.gmg.level_ops[-1]
+        self.start = start
+        self.cheb_pair = config.CHEB_PAIR if cheb_pair is None else cheb_pair
         self.timers = PhaseTimers(self.device, inner=phase_timers)
         self.n_outer = 0.0
         self.n_inner = 0.0
         # per-stage inner counts for per-stage time attribution (reference
         # main.cc:810-813)
         self.n_inner_stage = np.zeros(params.irk_stages)
+        # per-step solver counts of every step (never cleared)
+        self.step_log: list[dict] = []
         self._tau_cached: float | None = None
         self._prec = None
 
@@ -133,46 +153,20 @@ class SchemeBase:
 
 class RadauScheme(SchemeBase):
     """What the Radau IIA schemes share (``irk``, ``complex_irk`` and their
-    batched forms): the Butcher data, the kernel switch, the huge-grid
-    GMRES basis, the rhs ``A^-1 (F - K u)`` and the b-weighted update."""
+    batched forms): the Butcher data, the huge-grid GMRES basis, the rhs ``A^-1 (F - K u)`` and the b-weighted update."""
 
-    def __init__(
-        self,
-        problem: HeatProblem,
-        params: Parameters,
-        *,
-        kernels: bool | None = None,
-        tables: IRKTables | None = None,
-        start=None,
-        cheb_pair: bool | None = None,
-        phase_timers: bool = False,
-    ):
-        """``kernels``: run the hand-written kernels (default: when the
-        configuration's operator mode on this device is "pallas").
-        ``tables``: Butcher/diagonalisation tables (default: computed).
-        ``start``: Lanczos start vectors for ``gmg_reinit``.
-        ``cheb_pair``: let the unsharded kernel V-cycles take two Chebyshev
-        steps per K8 launch (``gmg.vcycle``; default ``config.CHEB_PAIR``,
-        off unless ``SPIRK_CHEB_PAIR=1``).
-        ``phase_timers``: see ``SchemeBase``."""
-        super().__init__(problem, params, phase_timers=phase_timers)
-        mode = params.operator_mode(self.device)
-        if mode == "dense":
-            raise NotImplementedError(
-                "MatrixBased (dense) operators are not ported yet (ROADMAP Queue 1 item 7)"
-            )
-        self.kernels = mode == "pallas" if kernels is None else kernels
+    def __init__(self, problem: HeatProblem, params: Parameters, *,
+                 tables: IRKTables | None = None, **options):
+        """``tables``: Butcher/diagonalisation tables (default: computed).
+        ``options``: see ``SchemeBase``."""
+        super().__init__(problem, params, **options)
         self.q = params.irk_stages
         self.tables = tables if tables is not None else irk_tables(self.q)
         self.A_inv = self.tensor(self.tables.A_inv)
         self.b_vec, self.c_vec = self.tensor(self.tables.b), self.tensor(self.tables.c)
-        self.start = start
-        self.cheb_pair = config.CHEB_PAIR if cheb_pair is None else cheb_pair
         # the JAX package's huge-grid GMRES policy (schemes/irk.py:116)
         self.compact = self.fine.m**self.dim > COMPACT_GRID_DOFS
         self.restart = COMPACT_BASIS if self.compact else GMRES_RESTART
-        # per-step solver counts of every step (never cleared)
-        self.step_log: list[dict] = []
 
     def fit_mesh(self, mesh: SlotMesh | None, n_stage: int) -> SlotMesh:
         """The slot mesh of a stage-parallel scheme: ``mesh``, or one slot

@@ -19,7 +19,11 @@ wrappers run their plain versions).  With ``cheb_pair=True`` as well, the
 levels of ``cheb_pair_level`` take their Chebyshev steps two at a time
 through K8 ``cheb_pair_dg`` (the JAX package's ``SPIRK_CHEB_PAIR``; off by
 default there and here); with ``kernels=False`` the same
-structure runs the plain torch operators.  The sequential ``irk`` scheme
+structure runs the plain torch operators, each level by its own route
+(``mass_laplace``: MatrixBased levels, built ``with_dense``, apply their
+dense matrices).  The algebraic hierarchy of ``solvers/amg.py``
+comes in the same ``GMGData`` and runs through the same code, kernels
+included.  The sequential ``irk`` scheme
 runs it on one stage at a time with ``stage_prec``.  Grid transfers are
 dense 1D contractions (``apply_dense_1d``) and the coarse solve a batched
 dense inverse, as the JAX package leaves both to XLA.
@@ -127,10 +131,10 @@ class GMGPrec:
     coarse_inv: torch.Tensor
 
 
-def _coarse_dense(space: Space, l0: int) -> tuple[np.ndarray, np.ndarray]:
-    lev = space.levels[l0]
-    M1, K1 = lev.mass_dense, lev.stiff_dense
-    if space.dim == 2:
+def coarse_dense(M1: np.ndarray, K1: np.ndarray, dim: int) -> tuple[np.ndarray, np.ndarray]:
+    """The dim-D mass and stiffness matrices of the coarsest level's 1D pair
+    (M1, K1), for the dense coarse solve."""
+    if dim == 2:
         M = np.kron(M1, M1)
         K = np.kron(K1, M1) + np.kron(M1, K1)
     else:
@@ -141,7 +145,10 @@ def _coarse_dense(space: Space, l0: int) -> tuple[np.ndarray, np.ndarray]:
     return M, K
 
 
-def build_gmg_data(space: Space, dtype=torch.float64, device="cpu") -> GMGData:
+def build_gmg_data(space: Space, dtype=torch.float64, device="cpu",
+                   with_dense: bool = False) -> GMGData:
+    """The geometric hierarchy of ``space``; ``with_dense``: each level with
+    its dense 1D matrices (the MatrixBased route)."""
     # coarsest retained level: the largest one still within the dense
     # coarse-solve budget (always keep at least the bottom level, and keep
     # the finest level out of the dense solve when there are >= 2 levels)
@@ -151,13 +158,13 @@ def build_gmg_data(space: Space, dtype=torch.float64, device="cpu") -> GMGData:
             l0 = i
     if l0 == len(space.levels) - 1 and len(space.levels) > 1:
         l0 -= 1
-    cm, ck = _coarse_dense(space, l0)
+    cm, ck = coarse_dense(space.levels[l0].mass_dense, space.levels[l0].stiff_dense, space.dim)
 
     def t(a):
         return torch.as_tensor(a, dtype=dtype, device=device).contiguous()
 
     return GMGData(
-        level_ops=tuple(level_ops(lev, dtype, device) for lev in space.levels[l0:]),
+        level_ops=tuple(level_ops(lev, dtype, device, with_dense) for lev in space.levels[l0:]),
         prolongs=tuple(t(P) for P in space.prolongations[l0:]),
         coarse_mass=t(cm),
         coarse_stiff=t(ck),
@@ -223,6 +230,9 @@ def gmg_reinit(
 
     ``start(shape, numpy dtype)`` gives each smoothed level's Lanczos
     start vector (broadcast over the stages); ``default_start`` when None.
+    The Lanczos applies take each level's route; the coarse matrices are
+    ``gmg``'s own (an AMG hierarchy brings its Galerkin ones), never rebuilt
+    from a space.
     """
     start = start or default_start
     dtype, device = gmg.coarse_mass.dtype, gmg.coarse_mass.device
@@ -389,7 +399,8 @@ def vcycle(
     ``MeshPrec`` and ``r`` a ``ShardedBlock`` on that mesh (see the module
     docstring); the result is one too.  ``cheb_pair``: with ``kernels``,
     smooth the ``cheb_pair_level`` levels by K8, two steps per launch
-    (ignored on a mesh).
+    (ignored on a mesh).  Without ``kernels`` each level's plain
+    operators take its own route (``mass_laplace``).
 
     Per level: pre-smoothing from a zero initial guess, the residual
     ``r - A x`` restricted to the next coarser level, the coarse

@@ -13,8 +13,14 @@ An arm is a precision and the operators it runs on: ``f32`` through the
 hand-written kernels, ``f32-plain`` through the plain torch operators in
 f32, ``f64`` through the plain torch operators, and ``f32-but-<wrapper>``
 through the kernels but one, whose wrapper (``stage_mix``,
-``mass_stiffness_apply`` or ``stencil_apply``, 2D and 3D alike) runs its
-plain version: the arm that finds a kernel which moves the L2.  The defaults are, in 3D,
+``mass_stiffness_apply`` or ``stencil_apply``, 2D and 3D alike; in 3D also
+``cheb_iter``, ``cheb_iter_dg`` or ``ms_mix_apply``) runs its plain
+version: the arm that finds a kernel which moves the L2.  P4's arms, for
+instance:
+
+    python3 scripts/torch_l2_tolerance.py --refinement 8 --stages 5 \
+        --schemes complex_irk_batched \
+        --runs f32:1e-4,f32-plain:1e-4,f32-but-cheb_iter_dg:1e-4,...  The defaults are, in 3D,
 the widths of ``chip_smoke.PATHS``' P2, P8 and P9 without the mesh, and in
 2D (``--dim 2``) P3's: ``irk_batched``, q=4, refinement 10, both f32 arms
 and f64 at 1e-4 and 1e-6 (f64 at 1e-8 last).  Prints per run the L2 error,
@@ -66,7 +72,8 @@ DEFAULTS = {
 
 
 # the wrappers an f32-but-<wrapper> arm may swap for their plain versions
-SWAPPABLE = ("stage_mix", "mass_stiffness_apply", "stencil_apply")
+SWAPPABLE = ("stage_mix", "mass_stiffness_apply", "stencil_apply", "cheb_iter", "cheb_iter_dg",
+             "ms_mix_apply")
 
 
 def parse_runs(spec: str) -> list[tuple[str, float]]:
@@ -137,7 +144,8 @@ def main(argv=None) -> int:
     ap.add_argument("--stages", type=int, default=None)
     ap.add_argument("--schemes", default=None)
     ap.add_argument("--runs", default=None,
-                    help="arm:OuterTolerance pairs; arms f32 (kernels), f32-plain, f64")
+                    help="arm:OuterTolerance pairs; arms f32 (kernels), f32-plain, f64, "
+                    "f32-but-<wrapper>")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():

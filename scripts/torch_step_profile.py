@@ -11,8 +11,10 @@ P4: 3D ``complex_irk_batched``, q=5, refinement 8; P5: 3D ``complex_irk``
 ``spirk``, q=2, refinement 8, on a (2, 2) slot mesh; P8: 3D
 ``complex_spirk_batched``, q=5, on a (3, 2) mesh; P9: 3D ``complex_spirk``
 (PRESB), q=5, on a (3, 2) mesh — the slots of ``chip_smoke.SLOTS``, all on
-the one card; P10: P4 with ``cheb_pair=True`` (K8 on the 255 level); all
-MatrixFree + GMG, InnerTolerance 0, OuterTolerance 1e-4, Q1, f32, dt 0.1)
+the one card; P10: P4 with ``cheb_pair=True`` (K8 on the 255 level); P11:
+3D ``ost``; P13: P1 with AMG; all MatrixFree, InnerTolerance 0,
+OuterTolerance 1e-4, Q1, f32, dt 0.1; P12: ``json/ost.json`` as shipped,
+MatrixBased + AMG, Q4, f64, plain torch whatever ``--plain`` says)
 for two warm-up steps, then profiles the next step with
 ``torch.profiler``: the step's wall time (host clock
 around work that ends in a synchronise), the summed device time of its
@@ -25,6 +27,7 @@ trace there.  Needs a CUDA device; imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import subprocess
 import sys
@@ -36,12 +39,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main(argv=None) -> int:
-    from chip_smoke import PAIR_STEPPED, PATHS, SLOTS
+    from chip_smoke import P12_JSON, PAIR_STEPPED, PATHS, SLOTS
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--path", default="P1", choices=tuple(PATHS))
+    ap.add_argument("--path", default="P1", choices=tuple(PATHS) + ("P12",))
     ap.add_argument("--refinement", type=int, default=None,
-                    help="default: the path's own (7, 7, 10, 8, 7, 7, 8, 7, 7, 8)")
+                    help="default: the path's own (7, 7, 10, 8, 7, 7, 8, 7, 7, 8, 7, 5, 7)")
     ap.add_argument("--plain", action="store_true")
     ap.add_argument("--trace", default=None)
     ap.add_argument("--top", type=int, default=12)
@@ -53,7 +56,11 @@ def main(argv=None) -> int:
     from dealii_spirk_tpu_torch.problem import HeatProblem
     from dealii_spirk_tpu_torch.schemes import make_scheme
 
-    dim, cfg, _levels = PATHS[args.path]
+    if args.path == "P12":
+        with open(P12_JSON) as f:
+            dim, cfg = 3, json.load(f)
+    else:
+        dim, cfg, _levels = PATHS[args.path]
     if args.refinement is not None:
         cfg = {**cfg, "NRefinements": args.refinement}
     params = Parameters.from_dict(cfg, dim=dim)
@@ -66,7 +73,8 @@ def main(argv=None) -> int:
         mesh = make_mesh(params.stage_axis_size, devices=[device] * SLOTS[args.path],
                          max_ranks=params.max_ranks, do_row_major=params.do_row_major,
                          padding=params.padding)
-    scheme = make_scheme(problem, params, kernels=not args.plain, mesh=mesh,
+    kernels = None if args.path == "P12" else not args.plain  # MatrixBased: never
+    scheme = make_scheme(problem, params, kernels=kernels, mesh=mesh,
                          cheb_pair=args.path in PAIR_STEPPED)
     tau = params.time_step_size
     u = scheme.solve_step(problem.initial_condition(), 1, tau, tau)
@@ -95,13 +103,14 @@ def main(argv=None) -> int:
     busy = sum(dev_us(e) for e in kernels) / 1e6
     n_launch = sum(e.count for e in kernels)
     log = scheme.step_log[-1]
-    arm = "plain torch" if args.plain else "kernels"
+    arm = "kernels" if scheme.kernels else "plain torch"
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True,
     ).stdout.strip()
+    stages = "" if params.time_integration_scheme == "ost" else f"q={params.irk_stages}, "
     print(f"{smi or torch.cuda.get_device_name(0)}; {args.path} ({params.time_integration_scheme}, "
-          f"{dim}D, q={params.irk_stages}, refinement {params.n_refinements}); arm: {arm}; "
+          f"{dim}D, {stages}refinement {params.n_refinements}); arm: {arm}; "
           f"step counts {log}")
     if mesh is not None:
         print(f"slot mesh {scheme.mesh.shape}, every slot on {device}")

@@ -103,17 +103,18 @@ def test_default_start_and_tables_stay_close(jax_run):
 
 @pytest.mark.parametrize("scheme", ["ost", "spirk", "complex_spirk", "complex_spirk_batched"])
 def test_unported_schemes_raise(scheme):
-    """The schemes still to port raise naming their ROADMAP item; ``spirk``
-    and ``complex_spirk(_batched)``, ported since, build on their default
-    slot mesh instead: (q, 1), and (ceil(q/2), 1) with a pair per row."""
+    """Every scheme is ported and none raises: ``spirk`` and
+    ``complex_spirk(_batched)`` build on their default slot mesh, (q, 1),
+    and (ceil(q/2), 1) with a pair per row; ``ost`` builds without one."""
     params = TParameters.from_dict({**BASE, "TimeIntegrationScheme": scheme}, dim=3)
     problem = HeatProblem(params, device="cpu")
     if scheme != "ost":
         rows = params.irk_stages if scheme == "spirk" else (params.irk_stages + 1) // 2
         assert make_scheme(problem, params).mesh.shape == {"stage": rows, "space": 1}
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_scheme(problem, params)
+    scheme = make_scheme(problem, params)
+    assert type(scheme).__name__ == "OneStepTheta" and not hasattr(scheme, "mesh")
+    assert scheme.mode == "stencil" and scheme.kernels is False
 
 
 def test_cli_runs_a_json_config(tmp_path, capsys):

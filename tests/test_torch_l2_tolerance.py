@@ -112,7 +112,7 @@ def test_main_prints_the_table(capsys):
     with pytest.raises(ValueError, match="unknown arm"):
         tl2.parse_runs("f16:1e-4")
     with pytest.raises(ValueError, match="unknown arm"):
-        tl2.parse_runs("f32-but-cheb_iter:1e-4")
+        tl2.parse_runs("f32-but-cheb_pair_dg:1e-4")
 
 
 @pytest.mark.parametrize("name", tl2.SWAPPABLE)
