@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Drives thirteen paths of the port through ``run_config`` on ``cuda``, P1-P11
-and P13 MatrixFree, InnerTolerance 0, OuterTolerance 1e-4, Q1, f32, dt 0.1,
-3 timesteps, with GMG (P13: AMG):
+Drives fifteen paths of the port on ``cuda``: P1-P11, P13 and P15 through
+``run_config``, MatrixFree, InnerTolerance 0, OuterTolerance 1e-4, Q1 (P15:
+Q2), f32, dt 0.1, 3 timesteps, with GMG (P13: AMG); P12 through the CLI;
+P14 through ``gmg_bench``'s CLI:
 
 * P1: ``irk_batched``, 3D, q=4, refinement 7 (127^3 DoFs per stage) —
   kernels K1 (the z march's Mix mode), K2, K3, K4;
@@ -47,7 +48,15 @@ and P13 MatrixFree, InnerTolerance 0, OuterTolerance 1e-4, Q1, f32, dt 0.1,
   held against a MatrixFree + GMG run of the same widths in f64;
 * P13: P1 with ``BlockPreconditionerType: "AMG"`` — the kernels (K1, K2,
   K3, K4) on the aggregation levels m = 127, 64, 32, 16 (even m, the last
-  aggregate's band rows apart), the 8^3 level solved densely.
+  aggregate's band rows apart), the 8^3 level solved densely;
+* P14: the GMG microbenchmark (``gmg_bench``, the reference's ``gmg``
+  executable) in 3D, f32, on the kernels: CG with one V-cycle per step on
+  M + K, Q1 refinements 3-8 in its four modes (``scalar``, ``fesystem8``,
+  ``batched8``, ``subgroups8`` on an (8, 1) slot mesh) and Q2 refinements
+  3-6 in ``scalar`` and ``batched8`` — K4 and K3, K3dg on the 255 level,
+  and in ``subgroups8`` K9a, K9c, K9d;
+* P15: ``irk_batched``, 3D, q=4, Q2, refinement 6 (127^3 DoFs per stage,
+  P1's) — K1 (8-row tile at p = 2), K2, K3, K4 at degree 2.
 
 Phases; any failure exits non-zero:
 
@@ -110,9 +119,18 @@ Phases; any failure exits non-zero:
    outer counts within 1 of an unsharded ``complex_irk_batched`` run's and
    its L2 within 1% of that run's, P9's per-pair outer and inner counts
    within 1 of P5's, P13's L2 within 1% of P1's;
-7. P12 (``run_p12``): no launch at all, L2 < 1e-2, and its L2 within
-   P12_REL of the MatrixFree + GMG twin's: the preconditioner and the
-   operator route change the counts, not the solution.
+7. P12 (``run_p12``, in a temporary directory): no launch at all, L2 <
+   1e-2, and its L2 within P12_REL of the MatrixFree + GMG twin's: the
+   preconditioner and the operator route change the counts, not the
+   solution; its ParaView series (``result.pvd`` listing every step and
+   step 0, the last ``.vtr`` equal to the final field with its zero
+   boundary, in f64, bit for bit);
+8. P14 (``run_p14``): every mode at every refinement gives a result (no
+   ``oom``), its launches equal the structure (``bench_launches``), its
+   true residual |rhs - A x| / |rhs| is at most twice the reduction asked
+   for, ``fesystem8`` and ``batched8`` take equal counts and
+   ``subgroups8`` within 1 of them; a plain arm solving once (P14_PLAIN)
+   takes counts within 1 of the kernel arm's.
 
 Prints the kernel summary as one JSON line, then as its last line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -120,10 +138,15 @@ Prints the kernel summary as one JSON line, then as its last line
 
 from __future__ import annotations
 
+import base64
 import gc
 import json
+import os
+import re
+import struct
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -171,15 +194,26 @@ PATHS = {
     "P11": (3, {**_COMMON, "NRefinements": 7, "TimeIntegrationScheme": "ost"}, 4),
     "P13": (3, {**_COMMON, "NRefinements": 7, "TimeIntegrationScheme": "irk_batched",
                 "IRKStages": 4, "BlockPreconditionerType": "AMG"}, 4),
+    "P15": (3, {**_COMMON, "FEDegree": 2, "NRefinements": 6,
+                "TimeIntegrationScheme": "irk_batched", "IRKStages": 4}, 4),
 }
 # P12: the shipped configuration as the file gives it (MatrixBased + AMG, Q4,
 # refinement 5, f64, dt 0.1 to 0.5), run once, and its MatrixFree + GMG twin
+ROOT = os.path.dirname(os.path.abspath(__file__))
 P12_JSON = "json/ost.json"
 P12_TWIN = {"OperatorType": "MatrixFree", "BlockPreconditionerType": "GMG"}
 # its L2 within this share of the twin's: on the CPU at f64 the two routes'
 # L2 lie 1.4e-7, 1.1e-8 and 7.7e-9 apart at refinements 2, 3 and 4 (CG's
 # 1e-8 ||rhs|| leaves the rest; PERF.md)
 P12_REL = 1e-6
+# P14: gmg_bench in 3D, f32, on the kernels: (degree, first and last
+# refinement, modes), and the (degree, refinement, modes) its plain arm
+# solves once at
+P14_SWEEPS = ((1, 3, 8, ("scalar", "fesystem8", "batched8", "subgroups8")),
+              (2, 3, 6, ("scalar", "batched8")))
+P14_PLAIN = ((1, 7, ("scalar", "fesystem8", "batched8", "subgroups8")),
+             (1, 8, ("scalar",)),
+             (2, 6, ("scalar", "batched8")))
 # slots of the (stage, space) mesh, all on the one card
 SLOTS = {"P6": 10, "P7": 4, "P8": 6, "P9": 6}
 # paths run with cheb_pair=True (K8), kernel arm only: the path whose two
@@ -268,6 +302,17 @@ KERNEL_CASES = [
     (3, 6, 8, 1, ("cheb_iter_dg", "stencil_apply", "mass_stiffness_apply", "stage_mix"),
      ("cheb_iter_dg", "stencil_apply", "mass_stiffness_apply")),  # P4's finest level
     (3, 3, 8, 1, ("cheb_iter_dg",), ()),
+    (3, 8, 3, 1, VCYCLE, ()),  # P14's 8-lane modes: the CG operator and V-cycle
+    (3, 8, 4, 1, VCYCLE, ()),
+    (3, 8, 7, 1, VCYCLE, ()),
+    (3, 8, 8, 1, ("cheb_iter_dg", "stencil_apply"), ()),
+    (3, 1, 3, 1, VCYCLE, ()),  # P14's scalar mode at refinement 3
+    (3, 1, 8, 1, ("cheb_iter_dg", "stencil_apply"), ()),
+    (3, 8, 3, 2, VCYCLE, ()),  # P14's Q2 sweep, 8 lanes and 1 (P15's q=4 below)
+    (3, 8, 6, 2, VCYCLE, ()),
+    (3, 1, 3, 2, VCYCLE, ()),
+    (3, 1, 6, 2, VCYCLE, ()),
+    (3, 4, 6, 2, K3D, ()),  # P15's finest level
     (3, 3, 4, 1, VCYCLE, ()),  # P5's three-lane PRESB V-cycles and M x0
     (3, 3, 5, 1, VCYCLE, ()),
     (3, 3, 6, 1, VCYCLE, ()),
@@ -313,6 +358,9 @@ HALO_CASES = [
     (4, 4, 2, (2, 4), False),  # degrees 2-4
     (4, 4, 3, (2, 4), False),
     (4, 3, 4, (2, 4), False),
+    (8, 8, 1, (1,), False),  # P14's subgroups8: one slot per lane, one z slab
+    (8, 4, 1, (1,), False),
+    (8, 3, 1, (1,), False),  # the CG operator's K9a on the unsplit 7^3 level
 ]
 # K8 against its plain version and two chained K3dg launches: (q, refinement,
 # degree, timed); m = 255 and 127 are no multiple of the 16 x 64 tile, 15 is
@@ -1530,13 +1578,46 @@ def run_path(device, name: str, kernels: bool, **over):
                       slots=SLOTS.get(name), cheb_pair=name in PAIR_STEPPED)
 
 
+def check_paraview(directory: str, out: dict) -> None:
+    """The ParaView series a run wrote into ``directory``: ``result.pvd``
+    lists step 0 and every step, and the last ``.vtr``'s payload is the
+    run's final field with its zero boundary added, in f64, bit for bit."""
+    n = out["n_timesteps"]
+    with open(os.path.join(directory, "result.pvd")) as f:
+        files = re.findall(r'file="([^"]+)"', f.read())
+    if files != [f"result_{i:04d}.vtr" for i in range(n + 1)]:
+        raise AssertionError(f"result.pvd lists {files}, not the {n + 1} files of the run")
+    with open(os.path.join(directory, files[-1])) as f:
+        raw = base64.b64decode(f.read().split('format="binary">')[1].split("<")[0])
+    (nbytes,) = struct.unpack("<I", raw[:4])
+    got = np.frombuffer(raw[4 : 4 + nbytes], dtype="<f8")
+    want = np.pad(out["u"].detach().to("cpu", torch.float64).numpy(), 1).ravel(order="F")
+    if not np.array_equal(got, want):
+        raise AssertionError(f"{files[-1]} does not hold the run's final field")
+    say(f"ParaView series: {len(files)} files listed in result.pvd, {files[-1]} "
+        f"({os.path.getsize(os.path.join(directory, files[-1]))} bytes) equal to the "
+        f"final field bit for bit")
+
+
 def run_p12(device, smi: str) -> dict:
     """P12: ``json/ost.json`` run as shipped through the port's CLI
     (``__main__.main``: MatrixBased + AMG, so the plain dense route and no
     kernel), its AMG setup timed inside that run (the scheme's construction,
     which builds the hierarchy, and its first preconditioner state, the
     Lanczos ``gmg_reinit`` of step 1), then its MatrixFree + GMG twin at the
-    same widths in f64; returns P12's launch counts (all zero)."""
+    same widths in f64; both in a temporary directory, where the CLI run's
+    ParaView series is checked (``check_paraview``); returns P12's launch
+    counts (all zero)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        try:
+            return _run_p12(device, smi, os.path.join(ROOT, P12_JSON), tmp)
+        finally:
+            os.chdir(cwd)
+
+
+def _run_p12(device, smi: str, config: str, workdir: str) -> dict:
     import dealii_spirk_tpu_torch.__main__ as cli
     from dealii_spirk_tpu_torch import runner
     from dealii_spirk_tpu_torch.config import Parameters
@@ -1571,7 +1652,7 @@ def run_p12(device, smi: str) -> dict:
         if arm == "P12":
             cli.run_config, runner.make_scheme = run_config, make_scheme
             try:
-                rc = cli.main(["--device", str(device), "--no-phase-timers", P12_JSON])
+                rc = cli.main(["--device", str(device), "--no-phase-timers", config])
             finally:
                 cli.run_config, runner.make_scheme = cli_run_config, runner_make_scheme
             if rc != 0 or len(runs) != 1:
@@ -1579,8 +1660,9 @@ def run_p12(device, smi: str) -> dict:
             out = runs.pop()
             say(f"P12 AMG setup inside the run on {smi}: "
                 + ", ".join(f"{k} {v:.3f} ms" for k, v in setup.items()))
+            check_paraview(workdir, out)
         else:
-            with open(P12_JSON) as f:
+            with open(config) as f:
                 params = Parameters.from_dict({**json.load(f), **P12_TWIN}, dim=3)
             out = runner.run_config(params, device=device, verbose=False)
         launches = dict(st.LAUNCHES)
@@ -1609,6 +1691,122 @@ def run_p12(device, smi: str) -> dict:
     if rel > P12_REL:
         raise AssertionError("P12 and its MatrixFree + GMG twin disagree on the error")
     return launches
+
+
+def run_p14(device, smi: str) -> dict:
+    """P14: ``gmg_bench`` through its CLI (``gmg_bench.main``, 3D, f32,
+    ``--op-mode kernels``) over P14_SWEEPS, each mode's launches read around
+    its ``_bench_mode`` call and held to ``bench_launches``, with the gates
+    of phase 8; then the plain arm (P14_PLAIN, one solve each).  Returns
+    P14's launch counts."""
+    import dealii_spirk_tpu_torch.gmg_bench as gb
+    from dealii_spirk_tpu_torch.fem.grid import make_space
+    from dealii_spirk_tpu_torch.ops.cuda import stencil as st
+    from dealii_spirk_tpu_torch.solvers.gmg import build_gmg_data
+
+    bench, runs = gb._bench_mode, {}
+    solves = 1 + gb.N_REPETITIONS
+    tol = 2 * gb.reltol_of(torch.float32)
+
+    def recording(space, gmg, dim, label, dtype, **kwargs):
+        before = dict(st.LAUNCHES)
+        res = bench(space, gmg, dim, label, dtype, **kwargs)
+        got = {k: n - before[k] for k, n in st.LAUNCHES.items()}
+        runs[(space.degree, space.refinement, label)] = (
+            res, got, bench_launches(gmg, dim, label, res.iterations, solves))
+        return res
+
+    t0 = time.perf_counter()
+    st.reset_launches()
+    gb._bench_mode = recording
+    try:
+        for p, r0, r1, modes in P14_SWEEPS:
+            say(f"P14: gmg_bench Q{p} refinements {r0}-{r1}, {', '.join(modes)}, on {smi}")
+            rc = gb.main(["--device", str(device), "--dim", "3", "--precision", "f32",
+                          "--op-mode", "kernels", "--degree", str(p), "--min-ref", str(r0),
+                          "--max-ref", str(r1), "--modes", ",".join(modes)])
+            if rc != 0:
+                raise AssertionError(f"P14: gmg_bench returned {rc}")
+    finally:
+        gb._bench_mode = bench
+    launches = dict(st.LAUNCHES)
+    say(f"P14 (kernels): {time.perf_counter() - t0:.1f} s, launches {launches}")
+    want = [(p, r, label) for p, r0, r1, modes in P14_SWEEPS
+            for r in range(r0, r1 + 1) for label in modes]
+    missing = [key for key in want if key not in runs]
+    if missing:
+        raise AssertionError(f"P14: no result (oom) for {missing}")
+    for (p, r, label), (res, got, structure) in runs.items():
+        say(f"P14 Q{p} r{r} {label:10s}: {res.iterations} iterations, "
+            f"{res.seconds / max(res.iterations, 1) * 1e3:.4f} ms per iteration "
+            f"({res.seconds * 1e3:.3f} ms per solve) on {smi}; true residual "
+            f"{res.true_residual:.3e} (tol {tol:g}); launches "
+            f"{ {k: n for k, n in got.items() if n} }")
+        if got != structure:
+            raise AssertionError(f"P14 Q{p} r{r} {label}: launches {got} != structure {structure}")
+        if not res.true_residual <= tol:
+            raise AssertionError(f"P14 Q{p} r{r} {label}: true residual {res.true_residual}")
+    for p, r, label in want:
+        if label in ("fesystem8", "subgroups8"):
+            n, n_b = runs[(p, r, label)][0].iterations, runs[(p, r, "batched8")][0].iterations
+            if (label == "fesystem8" and n != n_b) or abs(n - n_b) > 1:
+                raise AssertionError(f"P14 Q{p} r{r}: {label} {n} iterations, batched8 {n_b}")
+    t0 = time.perf_counter()
+    for p, r, modes in P14_PLAIN:
+        space = make_space(3, p, r)
+        gmg = build_gmg_data(space, dtype=torch.float32, device=device)
+        for label in modes:
+            before = dict(st.LAUNCHES)
+            res = bench(space, gmg, 3, label, torch.float32, kernels=False, device=device,
+                        repetitions=0)
+            n_k = runs[(p, r, label)][0].iterations
+            say(f"P14 plain Q{p} r{r} {label:10s}: {res.iterations} iterations (kernels "
+                f"{n_k}), {res.seconds * 1e3:.3f} ms per solve on {smi}; true residual "
+                f"{res.true_residual:.3e}")
+            if st.LAUNCHES != before:
+                raise AssertionError("P14's plain arm launched a kernel")
+            if abs(res.iterations - n_k) > 1 or not res.true_residual <= tol:
+                raise AssertionError(f"P14 Q{p} r{r} {label}: the plain arm disagrees")
+        del gmg
+        gc.collect()
+        torch.cuda.empty_cache()
+    say(f"P14 (plain): {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def bench_launches(gmg, dim: int, label: str, iterations: int, solves: int) -> dict:
+    """Launch counts of one ``gmg_bench`` mode on the kernels: per solve
+    ``pcg``'s CG operator once per iteration and the V-cycle once per
+    iteration and once at the start, over ``solves`` solves, and one more
+    operator apply for the true residual.  The operator is K4 (2D: K4-2D)
+    and a V-cycle ``_smoother_launches``' on all lanes at once; in
+    ``subgroups8`` (an (8, 1) slot mesh) every slot launches its own: the
+    operator K9a (2D: K4-2D), and a one-lane V-cycle whose levels that
+    ``sharded_levels`` splits take the halo forms (K9c or K9d, and K9a)."""
+    from types import SimpleNamespace
+
+    from dealii_spirk_tpu_torch.gmg_bench import MODES
+    from dealii_spirk_tpu_torch.ops.cuda import stencil as st
+    from dealii_spirk_tpu_torch.solvers.gmg import sharded_levels
+
+    n_comp, _shared, on_mesh = MODES[label]
+    want = dict.fromkeys(st.LAUNCHES, 0)
+    n_apply, n_vcycle = solves * iterations + 1, solves * (iterations + 1)
+    apply = "stencil_apply" if dim == 3 else "stencil_apply_2d"
+    if not on_mesh:
+        want[apply] = n_apply
+        _smoother_launches(SimpleNamespace(dim=dim, cheb_pair=False, gmg=gmg), n_vcycle, want)
+        return want
+    want["stencil_apply_halo" if dim == 3 else apply] = n_comp * n_apply
+    split = sharded_levels(gmg, dim, 1)
+    for l, ops in enumerate(gmg.level_ops[1:], 1):
+        level = dict.fromkeys(st.LAUNCHES, 0)
+        one = SimpleNamespace(dim=dim, cheb_pair=False, gmg=SimpleNamespace(level_ops=(None, ops)))
+        _smoother_launches(one, n_comp * n_vcycle, level)
+        for key, n in level.items():
+            if n:
+                want[key + "_halo" if split[l] else key] += n
+    return want
 
 
 def _smoother_launches(scheme, n_vcycle: int, want: dict) -> None:
@@ -1997,6 +2195,7 @@ def run_paths(device, smi: str) -> dict:
         torch.cuda.empty_cache()
     check_pair_stepped(launches, records)
     launches["P12"] = run_p12(device, smi)
+    launches["P14"] = run_p14(device, smi)
     for name, ref in PAIR_STEPPED.items():
         say(f"{ref} vs {name} (K3dg vs K8 on the 255 level) per-step ms, one run, on {smi}: "
             f"{times[ref]} vs {times[name]}")

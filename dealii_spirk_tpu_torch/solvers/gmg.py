@@ -171,48 +171,54 @@ def build_gmg_data(space: Space, dtype=torch.float64, device="cpu",
     )
 
 
-def _threefry2x32(key: tuple[int, int], x0: np.ndarray, x1: np.ndarray):
-    """Threefry-2x32 with 20 rounds (Salmon et al., SC'11) of the uint32
-    counter words (x0, x1) under ``key`` — the block function of JAX's
-    default generator."""
+_M32 = 0xFFFFFFFF
+
+
+def _threefry2x32(key: tuple[int, int], x0: torch.Tensor, x1: torch.Tensor):
+    """Threefry-2x32 with 20 rounds (Salmon et al., SC'11) of the 32-bit
+    counter words (x0, x1), held in int64 tensors, under ``key`` — the block
+    function of JAX's default generator."""
     rotations = ((13, 15, 26, 6), (17, 29, 16, 24))
-    ks = (np.uint32(key[0]), np.uint32(key[1]), np.uint32(key[0] ^ key[1] ^ 0x1BD11BDA))
-    x0 = x0 + ks[0]
-    x1 = x1 + ks[1]
+    ks = (key[0], key[1], key[0] ^ key[1] ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & _M32
+    x1 = (x1 + ks[1]) & _M32
     for i in range(5):
         for r in rotations[i % 2]:
-            x0 = x0 + x1
-            x1 = (x1 << np.uint32(r)) | (x1 >> np.uint32(32 - r))
+            x0 = (x0 + x1) & _M32
+            x1 = ((x1 << r) & _M32) | (x1 >> (32 - r))
             x1 = x0 ^ x1
-        x0 = x0 + ks[(i + 1) % 3]
-        x1 = x1 + ks[(i + 2) % 3]
-        x1 = x1 + np.uint32(i + 1)
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M32
     return x0, x1
+
+
+def threefry_uniform(seed: int, shape: tuple[int, ...], dtype=torch.float64,
+                     device="cpu") -> torch.Tensor:
+    """The floats in [0, 1) of JAX's ``jax.random.uniform(PRNGKey(seed),
+    shape, dtype)`` (before its clamp at the lower bound), drawn on
+    ``device``.
+
+    JAX's generator with ``jax_threefry_partitionable`` (its default):
+    element i (row-major) takes the Threefry-2x32 block of the counter
+    (i >> 32, i & 0xffffffff) under the key (0, seed); f32 keeps the top 23
+    bits of the two words' XOR as the mantissa of a float in [1, 2), f64
+    the top 52 bits of the words joined (first word high); minus 1, which
+    is the mantissa times 2^-23 (2^-52) exactly."""
+    n = int(np.prod(shape))
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    w0, w1 = _threefry2x32((0, seed), idx >> 32, idx & _M32)
+    if dtype == torch.float32:
+        return (((w0 ^ w1) >> 9).to(torch.float32) * 2.0**-23).reshape(shape)
+    mant = (w0 << 20) | (w1 >> 12)
+    return (mant.to(torch.float64) * 2.0**-52).reshape(shape)
 
 
 def default_start(shape: tuple[int, ...], dtype=np.float64) -> np.ndarray:
     """Lanczos start vector of a level: the bits of the JAX package's
     ``jax.random.uniform(PRNGKey(42), shape, dtype)`` (``solvers/gmg.py``),
-    drawn anew (same seed) for every level.
-
-    JAX's generator with ``jax_threefry_partitionable`` (its default):
-    element i (row-major) takes the Threefry-2x32 block of the counter
-    (i >> 32, i & 0xffffffff) under the key (0, 42); f32 keeps the top 23
-    bits of the two words' XOR as the mantissa of a float in [1, 2), f64
-    the top 52 bits of the words joined (first word high); minus 1."""
-    n = int(np.prod(shape))
-    idx = np.arange(n, dtype=np.uint64)
-    hi = (idx >> np.uint64(32)).astype(np.uint32)
-    lo = (idx & np.uint64(0xFFFFFFFF)).astype(np.uint32)
-    w0, w1 = _threefry2x32((0, 42), hi, lo)
-    if np.dtype(dtype) == np.float32:
-        bits = ((w0 ^ w1) >> np.uint32(9)) | np.uint32(0x3F800000)
-        out = bits.view(np.float32) - np.float32(1.0)
-    else:
-        bits = (w0.astype(np.uint64) << np.uint64(32)) | w1.astype(np.uint64)
-        bits = (bits >> np.uint64(12)) | np.uint64(0x3FF0000000000000)
-        out = bits.view(np.float64) - 1.0
-    return np.maximum(out, 0).reshape(shape)
+    drawn anew (same seed) for every level."""
+    tdt = torch.float32 if np.dtype(dtype) == np.float32 else torch.float64
+    return threefry_uniform(42, shape, tdt).clamp_min(0).numpy()
 
 
 def gmg_reinit(

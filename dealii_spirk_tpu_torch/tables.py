@@ -2,7 +2,8 @@
 
 The reference ships these as pre-generated text files (``tables/*.txt``)
 produced by an Octave script (reference ``tables/irk_ev.m:1-73``) and loads
-them at runtime (reference ``main.cc:599-656``).  Here we *generate* them
+them at runtime (reference ``main.cc:599-656``; ``load_table_file`` /
+``save_table_file`` read and write that format).  Here we *generate* them
 from first principles with numpy so any stage count is supported without
 data files:
 
@@ -34,6 +35,35 @@ import functools
 from dataclasses import dataclass
 
 import numpy as np
+
+
+# ---------------------------------------------------------------------------
+# reference-format table file I/O (interop with the reference's tables/)
+# ---------------------------------------------------------------------------
+
+
+def load_table_file(path: str) -> np.ndarray:
+    """Read a matrix/vector in the reference's table text format: two ints
+    (m, n) followed by row-major entries (reference ``main.cc:599-656``).
+    Vectors come back 1-D."""
+    with open(path) as f:
+        vals = f.read().replace(",", " ").split()
+    m, n = int(float(vals[0])), int(float(vals[1]))
+    data = np.array([float(v) for v in vals[2 : 2 + m * n]]).reshape(m, n)
+    return data.ravel() if m == 1 else data
+
+
+def save_table_file(path: str, data: np.ndarray) -> None:
+    """Write in the reference's format, byte for byte what the JAX
+    package's ``save_table_file`` writes for the same array."""
+    data = np.atleast_2d(np.asarray(data, dtype=np.float64))
+    with open(path, "w") as f:
+        f.write(f"{data.shape[0]}\n{data.shape[1]}\n")
+        for v in data.ravel():
+            # repr of a Python float: the shortest round-trip decimal (numpy
+            # 2's np.float64 repr would write "np.float64(...)", which the
+            # reference's parser cannot read, main.cc:599-656)
+            f.write(f"{float(v)!r}\n")
 
 
 # ---------------------------------------------------------------------------

@@ -11,8 +11,11 @@ CPU with 8 virtual devices, as the tests run it), each in a process of its
 own, and prints per config the table row's n_outer and n_inner (per step,
 steps 2 on, as the table's ``*_avg``; the ``ost`` row has none, so its CG
 count is read off the run), L2 and Linf of both, and whether the counts
-are equal and the errors within 1e-10 relative.  No config sets
-Precision, so both run f64, the port on the plain torch operators.
+are equal and the errors within 1e-10 relative; and the ParaView series
+each CLI wrote in its own working directory (``DoOutputParaview``, on in
+every config): the same number of ``.vtr`` files, the last one's payload
+within 1e-10 relative of the JAX CLI's.  No config sets Precision, so both
+run f64, the port on the plain torch operators.
 ``--refinement-offset K`` lowers every config's NRefinements by K where the
 full width cannot run on the CPU (``spirk_sm.json`` takes about 20
 auto-sized steps at refinement 8).  ``n_procs`` differs by design (the JAX
@@ -26,13 +29,17 @@ port beside other processes have hung in MKL's LASWP faults.
 from __future__ import annotations
 
 import argparse
+import base64
 import glob
 import json
 import os
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+
+import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RTOL = 1e-10
@@ -90,12 +97,29 @@ def run_cli(pkg: str, path: str, workdir: str) -> tuple[dict, float]:
     return json.loads(lines[0].removeprefix("PARITY ")), seconds
 
 
-def compare(t: dict, j: dict) -> dict:
-    """Whether the port's record matches the JAX package's."""
+def paraview(workdir: str) -> tuple[list[str], np.ndarray | None]:
+    """(the .vtr files a CLI run wrote into ``workdir``, the last one's
+    point data)."""
+    files = sorted(f for f in os.listdir(workdir) if f.endswith(".vtr"))
+    if not files:
+        return files, None
+    with open(os.path.join(workdir, files[-1])) as f:
+        raw = base64.b64decode(f.read().split('format="binary">')[1].split("<")[0])
+    (nbytes,) = struct.unpack("<I", raw[:4])
+    return files, np.frombuffer(raw[4 : 4 + nbytes], dtype="<f8")
+
+
+def compare(t: dict, j: dict, t_dir: str, j_dir: str) -> dict:
+    """Whether the port's record and ParaView series match the JAX
+    package's."""
     counts = (t["n_t"], t["n_outer"], t["n_inner"]) == (j["n_t"], j["n_outer"], j["n_inner"])
     rel = {k: abs(t[k] - j[k]) / abs(j[k]) for k in ("error_L2", "error_Linf")}
-    return {"counts_equal": counts, "rel": rel,
-            "match": counts and all(v <= RTOL for v in rel.values())}
+    (t_files, t_last), (j_files, j_last) = paraview(t_dir), paraview(j_dir)
+    files = t_files == j_files
+    if files and t_last is not None:
+        rel["paraview"] = float(np.abs(t_last - j_last).max() / np.abs(j_last).max())
+    return {"counts_equal": counts, "rel": rel, "vtr_files": [len(t_files), len(j_files)],
+            "match": counts and files and all(v <= RTOL for v in rel.values())}
 
 
 def main(argv=None) -> int:
@@ -117,21 +141,28 @@ def main(argv=None) -> int:
             cut = os.path.join(workdir, os.path.basename(path))
             with open(cut, "w") as f:
                 json.dump(cfg, f)
-            t, t_s = run_cli("torch", cut, workdir)
-            j, j_s = run_cli("jax", cut, workdir)
+            dirs = {}
+            for pkg in ("torch", "jax"):
+                dirs[pkg] = os.path.join(workdir, os.path.basename(path) + "." + pkg)
+                os.mkdir(dirs[pkg])
+            t, t_s = run_cli("torch", cut, dirs["torch"])
+            j, j_s = run_cli("jax", cut, dirs["jax"])
             rec = {"config": os.path.relpath(path, ROOT), "NRefinements": cfg["NRefinements"],
                    "offset": args.refinement_offset, "torch": t, "jax": j,
-                   "torch_s": round(t_s, 1), "jax_s": round(j_s, 1), **compare(t, j)}
+                   "torch_s": round(t_s, 1), "jax_s": round(j_s, 1),
+                   **compare(t, j, dirs["torch"], dirs["jax"])}
             records.append(rec)
             print(json.dumps(rec), flush=True)
     print(f"{'config':28s} {'r':>2s} | {'port n_outer n_inner L2 Linf':42s} | "
-          f"{'JAX n_outer n_inner L2 Linf':42s} | match, n_procs port/JAX")
+          f"{'JAX n_outer n_inner L2 Linf':42s} | match, n_procs port/JAX, .vtr files, "
+          f"last .vtr rel. gap")
     for r in records:
         t, j = r["torch"], r["jax"]
         row = [f"{x['n_outer']:6.2f} {x['n_inner']:6.2f} {x['error_L2']:.6e} "
                f"{x['error_Linf']:.6e}" for x in (t, j)]
         print(f"{r['config']:28s} {r['NRefinements']:2d} | {row[0]:42s} | {row[1]:42s} | "
-              f"{r['match']}, {t['n_procs']}/{j['n_procs']}")
+              f"{r['match']}, {t['n_procs']}/{j['n_procs']}, {r['vtr_files'][0]}/"
+              f"{r['vtr_files'][1]}, {r['rel'].get('paraview', float('nan')):.1e}")
     if args.json:
         with open(args.json, "w") as f:
             json.dump(records, f, indent=1)

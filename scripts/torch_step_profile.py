@@ -12,8 +12,9 @@ P4: 3D ``complex_irk_batched``, q=5, refinement 8; P5: 3D ``complex_irk``
 ``complex_spirk_batched``, q=5, on a (3, 2) mesh; P9: 3D ``complex_spirk``
 (PRESB), q=5, on a (3, 2) mesh — the slots of ``chip_smoke.SLOTS``, all on
 the one card; P10: P4 with ``cheb_pair=True`` (K8 on the 255 level); P11:
-3D ``ost``; P13: P1 with AMG; all MatrixFree, InnerTolerance 0,
-OuterTolerance 1e-4, Q1, f32, dt 0.1; P12: ``json/ost.json`` as shipped,
+3D ``ost``; P13: P1 with AMG; P15: P1 at Q2, refinement 6; all
+MatrixFree, InnerTolerance 0, OuterTolerance 1e-4, Q1 (P15: Q2), f32,
+dt 0.1; P12: ``json/ost.json`` as shipped,
 MatrixBased + AMG, Q4, f64, plain torch whatever ``--plain`` says)
 for two warm-up steps, then profiles the next step with
 ``torch.profiler``: the step's wall time (host clock
@@ -38,13 +39,26 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
+def dev_us(e) -> float:
+    """An averaged profiler event's own device time, in microseconds."""
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+
+def device_events(prof) -> list:
+    """The device-side events of a profile (kernels, memcpy/memset): the
+    host-side ATen ops carry their children's device time as well and would
+    count twice."""
+    return [e for e in prof.key_averages()
+            if e.device_type != torch.autograd.DeviceType.CPU and dev_us(e) > 0]
+
+
 def main(argv=None) -> int:
     from chip_smoke import P12_JSON, PAIR_STEPPED, PATHS, SLOTS
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--path", default="P1", choices=tuple(PATHS) + ("P12",))
     ap.add_argument("--refinement", type=int, default=None,
-                    help="default: the path's own (7, 7, 10, 8, 7, 7, 8, 7, 7, 8, 7, 5, 7)")
+                    help="default: the path's own (7, 7, 10, 8, 7, 7, 8, 7, 7, 8, 7, 5, 7, 6)")
     ap.add_argument("--plain", action="store_true")
     ap.add_argument("--trace", default=None)
     ap.add_argument("--top", type=int, default=12)
@@ -91,15 +105,7 @@ def main(argv=None) -> int:
         os.makedirs(args.trace, exist_ok=True)
         prof.export_chrome_trace(os.path.join(args.trace, "step.json"))
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
-    # device-side events only (kernels, memcpy/memset): the host-side ATen
-    # ops carry their children's device time as well and would count twice
-    kernels = [
-        e for e in prof.key_averages()
-        if e.device_type != torch.autograd.DeviceType.CPU and dev_us(e) > 0
-    ]
+    kernels = device_events(prof)
     busy = sum(dev_us(e) for e in kernels) / 1e6
     n_launch = sum(e.count for e in kernels)
     log = scheme.step_log[-1]

@@ -21,6 +21,7 @@ JAX package, on the CPU at f64:
 
 import json
 import os
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -190,10 +191,14 @@ def test_ost_json_through_the_cli(tmp_path, monkeypatch, capsys):
     path = tmp_path / "ost.json"
     path.write_text(json.dumps({**cfg, "NRefinements": 2}))
     truns, jruns = _recorded(tmain, monkeypatch), _recorded(jmain, monkeypatch)
-    monkeypatch.chdir(tmp_path)  # the JAX CLI writes the config's paraview files here
+    monkeypatch.chdir(tmp_path)  # both CLIs write the config's paraview files here
     assert tmain.main(["--device", "cpu", str(path)]) == 0
     text = capsys.readouterr().out
-    assert "error_L2" in text and "DoOutputParaview ignored" in text
+    assert "error_L2" in text
+    # the port's CLI wrote step 0 and every step, and the collection lists them
+    written = [f"result_{i:04d}.vtr" for i in range(truns[0]["n_timesteps"] + 1)]
+    assert sorted(os.listdir(tmp_path)) == sorted(["ost.json", "result.pvd"] + written)
+    assert re.findall(r'file="([^"]+)"', (tmp_path / "result.pvd").read_text()) == written
     assert jmain.main([str(path)]) == 0
     (t,), (j,) = truns, jruns
     scheme = t["scheme"]
