@@ -24,9 +24,9 @@ and to two K3dg launches, saying whether it equals them bit for bit) and
 takes a digest of its outputs' bytes, and the arms' digests of BITWISE
 (K3, K4, K9c, K9a, K3dg, K9d, K1, K1's split route, K5, K9b) must be
 equal, as ``torch.equal`` would find them; ``--smooth`` adds the 2D and 3D
-smooth-field rows.  The arms' wrappers must take the same Python
-arguments.  Prints one line per arm and
-case, a table, and writes every figure as JSON to ``--out``.  Needs a CUDA
+smooth-field rows (Q1, and at degrees 3 and 4).  The arms' wrappers must
+take the same Python arguments.  Prints one line per arm and case, a
+table, and writes every figure as JSON to ``--out``.  Needs a CUDA
 device; imports nothing of JAX.
 """
 
@@ -101,7 +101,8 @@ def run_arm(tree: str, smooth: bool, check: bool, keys=KEYS) -> dict:
             del c, inputs, got
     out = {"tree": tree, "digests": digests, "measured": cs.measure_kernels(device, cases)}
     if smooth:
-        out["smooth"] = [row for cases in (cs.smooth_cases_2d(device), cs.smooth_cases_3d(device))
+        out["smooth"] = [row for cases in (cs.smooth_cases_2d(device), cs.smooth_cases_3d(device),
+                                           cs.smooth_cases_degree(device))
                          for row in cs.smooth_rows(cases)]
     return out
 

@@ -3,12 +3,14 @@
 with the precision, at one configuration, on one CUDA device.
 
     python3 scripts/torch_l2_tolerance.py [--dim 3] [--refinement 7] [--stages 5]
-        [--schemes irk,complex_irk_batched,complex_irk] [--runs f32:1e-4,f64:1e-4,...]
-        [--device cuda]
+        [--degree 1] [--slots N] [--schemes irk,complex_irk_batched,complex_irk]
+        [--runs f32:1e-4,f64:1e-4,...] [--device cuda]
     python3 scripts/torch_l2_tolerance.py --dim 2     # P3: irk_batched, q=4, refinement 10
 
 Runs each scheme of ``--schemes`` once per ``arm:OuterTolerance`` pair of
-``--runs`` (Q1, MatrixFree + GMG, InnerTolerance 0, dt 0.1, three steps).
+``--runs`` (degree ``--degree``, by default Q1; MatrixFree + GMG,
+InnerTolerance 0, dt 0.1, three steps; a stage-parallel scheme on
+``--slots`` slots of the device, as ``chip_smoke.SLOTS`` gives them).
 An arm is a precision and the operators it runs on: ``f32`` through the
 hand-written kernels, ``f32-plain`` through the plain torch operators in
 f32, ``f64`` through the plain torch operators, and ``f32-but-<wrapper>``
@@ -104,7 +106,8 @@ def plain_wrapper(name: str | None):
 
 
 def run(dim: int, refinement: int, stages: int, schemes: list[str],
-        runs: list[tuple[str, float]], device: str = "cuda") -> list[dict]:
+        runs: list[tuple[str, float]], device: str = "cuda", degree: int = 1,
+        slots: int | None = None) -> list[dict]:
     """One ``run_config`` per scheme and (arm, OuterTolerance); a record per
     run: scheme, arm, precision, whether the kernels ran, tolerance, L2
     error, per-step outer counts, seconds."""
@@ -115,14 +118,15 @@ def run(dim: int, refinement: int, stages: int, schemes: list[str],
     for scheme in schemes:
         for arm, tol in runs:
             prec = arm.split("-")[0]
-            cfg = {**_BASE, "NRefinements": refinement, "IRKStages": stages,
-                   "TimeIntegrationScheme": scheme, "Precision": prec, "OuterTolerance": tol}
+            cfg = {**_BASE, "FEDegree": degree, "NRefinements": refinement,
+                   "IRKStages": stages, "TimeIntegrationScheme": scheme, "Precision": prec,
+                   "OuterTolerance": tol}
             options = {"kernels": False} if arm.endswith("-plain") else {}
             swapped = arm.removeprefix("f32-but-") if arm.startswith("f32-but-") else None
             t0 = time.perf_counter()
             with plain_wrapper(swapped):
                 out = run_config(Parameters.from_dict(cfg, dim=dim), device=device,
-                                 verbose=False, **options)
+                                 verbose=False, slots=slots, **options)
             seconds = time.perf_counter() - t0
             records.append({
                 "scheme": scheme, "arm": arm, "precision": prec,
@@ -142,6 +146,8 @@ def main(argv=None) -> int:
     ap.add_argument("--dim", type=int, default=3, choices=(2, 3))
     ap.add_argument("--refinement", type=int, default=None)
     ap.add_argument("--stages", type=int, default=None)
+    ap.add_argument("--degree", type=int, default=1)
+    ap.add_argument("--slots", type=int, default=None)
     ap.add_argument("--schemes", default=None)
     ap.add_argument("--runs", default=None,
                     help="arm:OuterTolerance pairs; arms f32 (kernels), f32-plain, f64, "
@@ -160,7 +166,7 @@ def main(argv=None) -> int:
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True, text=True)
         print(f"card: {smi.stdout.strip()}", flush=True)
-    records = run(args.dim, ref, stages, schemes, runs, args.device)
+    records = run(args.dim, ref, stages, schemes, runs, args.device, args.degree, args.slots)
     l2 = {(r["scheme"], r["arm"], r["outer_tolerance"]): r["error_L2"] for r in records}
     first, last = schemes[0], runs[-1]
     print(f"relative L2 distance to {first} at the same run | to {first} at "

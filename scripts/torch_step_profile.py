@@ -12,8 +12,11 @@ P4: 3D ``complex_irk_batched``, q=5, refinement 8; P5: 3D ``complex_irk``
 ``complex_spirk_batched``, q=5, on a (3, 2) mesh; P9: 3D ``complex_spirk``
 (PRESB), q=5, on a (3, 2) mesh — the slots of ``chip_smoke.SLOTS``, all on
 the one card; P10: P4 with ``cheb_pair=True`` (K8 on the 255 level); P11:
-3D ``ost``; P13: P1 with AMG; P15: P1 at Q2, refinement 6; all
-MatrixFree, InnerTolerance 0, OuterTolerance 1e-4, Q1 (P15: Q2), f32,
+3D ``ost``; P13: P1 with AMG; P15: P1 at Q2, refinement 6; P16, P17:
+``irk_batched`` q=4 at Q3 and Q4, refinement 6; P18: ``spirk`` q=4 Q4,
+refinement 5, on a (4, 2) mesh; P19: ``irk_batched`` q=5 Q4, refinement 6
+(K1's route); P20: ``complex_irk_batched`` q=5 Q4, refinement 5; all
+MatrixFree, InnerTolerance 0, OuterTolerance 1e-4, Q1 unless said, f32,
 dt 0.1; P12: ``json/ost.json`` as shipped,
 MatrixBased + AMG, Q4, f64, plain torch whatever ``--plain`` says)
 for two warm-up steps, then profiles the next step with
@@ -58,7 +61,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--path", default="P1", choices=tuple(PATHS) + ("P12",))
     ap.add_argument("--refinement", type=int, default=None,
-                    help="default: the path's own (7, 7, 10, 8, 7, 7, 8, 7, 7, 8, 7, 5, 7, 6)")
+                    help="default: the path's own (chip_smoke.PATHS; P12: 5)")
     ap.add_argument("--plain", action="store_true")
     ap.add_argument("--trace", default=None)
     ap.add_argument("--top", type=int, default=12)

@@ -72,11 +72,13 @@ def _launches() -> dict:
     return shapes
 
 
-# the lanes of a path's V-cycle launches: whole blocks (P1 four stages, P2
-# one at a time, P4 and P10 six pair lanes, P5 three), or per slot of a
-# mesh path with two space slots (P6, P7 and P9 one lane, P8 two)
-PATH_LANES = {"P1": 4, "P2": 1, "P4": 6, "P5": 3, "P10": 6}
-MESH_LANES = {"P6": 1, "P7": 1, "P8": 2, "P9": 1}
+# the lanes of a path's V-cycle launches: whole blocks (P1, P16, P17 four
+# stages, P19 five, P2 one at a time, P4, P10 and P20 six pair lanes, P5
+# three), or per slot of a mesh path with two space slots (P6, P7, P9 and
+# P18 one lane, P8 two)
+PATH_LANES = {"P1": 4, "P2": 1, "P4": 6, "P5": 3, "P10": 6, "P16": 4, "P17": 4,
+              "P19": chip_smoke.P19_STAGES, "P20": 6}
+MESH_LANES = {"P6": 1, "P7": 1, "P8": 2, "P9": 1, "P18": 1}
 
 
 def _path_launches() -> dict:
@@ -84,7 +86,7 @@ def _path_launches() -> dict:
     for name, (_dim, cfg, n_levels) in chip_smoke.PATHS.items():
         top = cfg["NRefinements"]
         for ref in range(top - n_levels + 1, top + 1):
-            m = _m(ref, 1)
+            m = _m(ref, cfg["FEDegree"])
             if name in PATH_LANES:
                 shapes[f"{name} r={ref}"] = (PATH_LANES[name], m, m)
             elif name in MESH_LANES:
@@ -192,16 +194,18 @@ def _k1_launches() -> dict:
     for dim, q, ref, p, names, _timed in chip_smoke.KERNEL_CASES:
         if dim == 3 and "ms_mix_apply" in names:
             shapes[f"kernel q={q} r={ref} p={p}"] = (q, _m(ref, p), p)
-    _dim, cfg, _levels = chip_smoke.PATHS["P1"]
-    shapes["P1"] = (cfg["IRKStages"], _m(cfg["NRefinements"], 1), 1)
+    for name in ("P1", "P15", "P16", "P17", "P19"):
+        _dim, cfg, _levels = chip_smoke.PATHS[name]
+        p = cfg["FEDegree"]
+        shapes[name] = (cfg["IRKStages"], _m(cfg["NRefinements"], p), p)
     return shapes
 
 
 # the lanes of a path's K5 launch (the vmult, unsharded: P2 the q stages, P4,
 # P5 and P10 the 2 n2 = 6 pair lanes) or of its K9b launch per slot of a
 # mesh with two space slots (P6, P7 a stage, P8, P9 a pair)
-K5_LANES = {"P2": 5, "P4": 6, "P5": 6, "P10": 6}
-K9B_LANES = {"P6": 1, "P7": 1, "P8": 2, "P9": 2}
+K5_LANES = {"P2": 5, "P4": 6, "P5": 6, "P10": 6, "P20": 6}
+K9B_LANES = {"P6": 1, "P7": 1, "P8": 2, "P9": 2, "P18": 1}
 
 
 def _ms_launches() -> dict:
@@ -216,7 +220,7 @@ def _ms_launches() -> dict:
             for z0, z1 in z_partition(m, nsp):
                 shapes[f"K9b r={ref} p={p} {nsp} slabs, planes {z0}:{z1}"] = (1, z1 - z0, m)
     for name, (_dim, cfg, _levels) in chip_smoke.PATHS.items():
-        m = _m(cfg["NRefinements"], 1)
+        m = _m(cfg["NRefinements"], cfg["FEDegree"])
         if name in K5_LANES:
             shapes[f"{name} K5"] = (K5_LANES[name], m, m)
         elif name in K9B_LANES:
