@@ -59,8 +59,9 @@ Q1 (P15: Q2; P16: Q3; P17-P21: Q4), f32, dt 0.1, 3 timesteps, with GMG
   P1's) — K1 (8-row tile at p = 2), K2, K3, K4 at degree 2;
 * P16, P17: the paper's degree sweep (``irk_batched`` 3D q=4) at Q3 and
   Q4, refinement 6 (191^3 and 255^3 DoFs per stage; P17 past the compact
-  GMRES threshold) — K1 on its 16-row (p = 3) and 8-row (p = 4) tile, K2,
-  K3dg on the finest level, K3 and K4 below;
+  GMRES threshold) — K1 on its 16-row tile (p = 3) and as its route K2 +
+  ms_mix_apply_split (p = 4), K2, K3dg on the finest level, K3 and K4
+  below;
 * P18: ``spirk`` 3D q=4 Q4 refinement 5 on a (4, 2) slot mesh (slabs of
   64 + 63 planes with 4-plane halos) — K9a, K9b, K9c at p = 4; held to an
   unsharded ``irk`` run at its widths;
@@ -113,8 +114,9 @@ Phases; any failure exits non-zero:
    have none, K8 at P4's finest level beside two K3dg launches, and K5-2D
    at P3's finest level and m=255 beside a grouped conv2d, and at degrees
    3 and 4 (no library call) K3dg at P16's and P17's finest levels, K3 and
-   K4 at P20's, K1 at P17's, K2 and ms_mix_apply_split at P19's and K9c on
-   P18's first slab: device time per launch from
+   K4 at P20's, K1 at P17's (its route: the device time of the whole
+   call), K2 and ms_mix_apply_split at P19's, K9c on P18's first slab and
+   K3dg at P19's: device time per launch from
    ``torch.profiler`` (only sessions in which every timed launch left its
    record, ``profiler_session``), time per call from CUDA events in turns (kernel,
    library, library, kernel), L2-warm and L2-cold; printed and kept in the
@@ -122,6 +124,11 @@ Phases; any failure exits non-zero:
    but a turn that reads below the DRAM bound (``sub_bound``) is printed as
    dropped and left out, and a case whose every turn drops fails; the
    least of the kept turns is printed with their median;
+3c. K3dg's diagnostic arms (``measure_arms``, ARM_CASES: P4's 255 level at
+   p = 1, P16's 191 and P17's 255 levels): the kernel, its passes alone on
+   resident planes and its copies alone, device time L2-cold; numbers,
+   printed and kept in a line of their own (``k3dg_arms``) before the
+   kernels line, not gates;
 4. per path, the kernel arm: the launch counts (all set to 0 just before
    the run, read just after) must equal what the solve structure implies
    and include every kernel of the path (REQUIRED: K3dg on P16, P17, P19
@@ -157,8 +164,9 @@ Phases; any failure exits non-zero:
    takes counts within 1 of the kernel arm's; Q1 refinements 3-8 in all
    four modes, Q2-Q4 refinements 3-6 in ``scalar`` and ``batched8``.
 
-Prints the kernel summary as one JSON line, then as its last line
-``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+Prints K3dg's arms as one JSON line, the kernel summary as another, then
+as its last line ``{"ok": true, "device": {...}}``.  Imports nothing of
+JAX.
 """
 
 from __future__ import annotations
@@ -195,8 +203,10 @@ _COMMON = {
     "Precision": "f32",
     "DoOutputParaview": False,
 }
-# P19's stages: the fewest at which no K1 block holds the q rings at Q4
-# (mix_tile(5, 4) = 0), so its vmult takes K2 + ms_mix_apply_split.  Not
+# P19's stages: the fewest at which no K1 block holds the q rings at Q4, so
+# its vmult takes K2 + ms_mix_apply_split (as P17's four stages do too,
+# since mix_tile takes the route at p = 4 wherever no tile lets two Mix
+# blocks share an SM).  Not
 # the q sweep's 8: the stage mixes T and T^-1 of Radau IIA lose
 # cond(T) * eps in f32, and cond(T) grows about 8x per stage (231 at q=4,
 # 1.4e3 at 5, 1.2e4 at 6, 7.3e5 at 8), so at q=8 an f32 solve stops on its
@@ -400,6 +410,15 @@ KERNEL_CASES = [
     # the q rings and K1 takes the route K2 + ms_mix_apply_split
     (3, 8, 5, 1, ("ms_mix_apply",), ()),
     (3, 8, 3, 4, ("ms_mix_apply", "ms_mix_apply_split", "stage_mix"), ()),
+    # K1's other forms (mix_tile): the 16-row tile at p = 2 and 4 (q=1), the
+    # 8-row tile at p = 3 and 4 (q=2; at p = 4 also at the 255 level) and
+    # the route at p = 3 (q=7)
+    (3, 1, 4, 2, ("ms_mix_apply",), ()),
+    (3, 1, 4, 4, ("ms_mix_apply",), ()),
+    (3, 2, 4, 3, ("ms_mix_apply",), ()),
+    (3, 2, 4, 4, ("ms_mix_apply",), ()),
+    (3, 2, 6, 4, ("ms_mix_apply",), ()),
+    (3, 7, 3, 3, ("ms_mix_apply", "ms_mix_apply_split", "stage_mix"), ()),
     (2, 4, 6, 2, K2D, ()),
     (2, 4, 6, 3, K2D, ()),
     (2, 4, 6, 4, K2D, ()),
@@ -408,8 +427,9 @@ KERNEL_CASES = [
     (2, 4, 9, 2, K2D, ()),  # m = 1023
     (2, 4, 8, 3, K2D, ()),  # m = 767
     (2, 4, 8, 4, K2D, ()),  # m = 1023
-    # P16 (Q3) and P17 (Q4), q=4: K1 (one block per SM), K2 and K3dg at the
-    # finest level (191, 255), the V-cycle below
+    # P16 (Q3) and P17 (Q4), q=4: K1 (P16 its 16-row tile, P17 its route K2
+    # + ms_mix_apply_split), K2 and K3dg at the finest level (191, 255), the
+    # V-cycle below
     (3, 4, 3, 3, VCYCLE, ()),
     (3, 4, 5, 3, VCYCLE, ()),
     (3, 4, 6, 3, ("ms_mix_apply", "stage_mix", "cheb_iter_dg", "stencil_apply"), ()),
@@ -533,8 +553,9 @@ MEASURE_CASES = [
     ("mass_stiffness_apply_2d", 2, 4, 4, 10, 1),
     ("mass_stiffness_apply_2d", 2, 4, 4, 8, 1),
     # the degree sweep: K3dg at P16's 191 and P17's 255 levels (q=4); K3 and
-    # K4 at P20's 127 level (six lanes, Q4); K1 at P17's finest level; K1's
-    # route at P19's (K2, then ms_mix_apply_split); K9c on P18's first slab
+    # K4 at P20's 127 level (six lanes, Q4); K1 at P17's finest level (its
+    # route, mix_tile); K1's route at P19's (K2, then ms_mix_apply_split);
+    # K9c on P18's first slab
     ("cheb_iter_dg", 3, 4, 4, 6, 3),
     ("cheb_iter_dg", 3, 4, 4, 6, 4),
     ("cheb_iter", 3, 6, 6, 5, 4),
@@ -543,6 +564,8 @@ MEASURE_CASES = [
     ("stage_mix", 3, P19_STAGES, P19_STAGES, 6, 4),
     ("ms_mix_apply_split", 3, P19_STAGES, P19_STAGES, 6, 4),
     ("cheb_iter_halo", 3, 1, 1, 5, 4),
+    # K3dg at P19's 255 level (P19_STAGES lanes, Q4)
+    ("cheb_iter_dg", 3, P19_STAGES, P19_STAGES, 6, 4),
 ]
 # the device kernels of a LAUNCHES key, by name in the profiler (default the
 # key itself): the z march of each mode and its pair form (csrc/march.cuh),
@@ -557,8 +580,8 @@ DEVICE_NAMES = {
     "mass_stiffness_apply_halo": ("MassStiff", "mass_stiffness_kernel"),
     "cheb_iter": ("ChebInvd", "cheb_iter_kernel"),
     "cheb_iter_halo": ("ChebInvd", "cheb_iter_kernel"),
-    "stencil_apply": ("Apply>", "stencil_apply_kernel"),
-    "stencil_apply_halo": ("Apply>", "stencil_apply_kernel"),
+    "stencil_apply": ("::Apply", "stencil_apply_kernel"),
+    "stencil_apply_halo": ("::Apply", "stencil_apply_kernel"),
     "cheb_iter_dg": ("ChebDiag", "cheb_dg_march", "cheb_iter_kernel"),
     "cheb_iter_dg_halo": ("ChebDiag", "cheb_dg_march", "cheb_iter_kernel"),
     "cheb_pair_dg": ("pair_march", "cheb_pair_kernel"),
@@ -1326,6 +1349,7 @@ def _measure_setup(key: str, dim: int, qi: int, qo: int, ref: int, p: int, devic
     if key == "ms_mix_apply":
         ainv = torch.as_tensor(rng.uniform(-2, 2, (qi, qi)), dtype=torch.float32, device=device)
         return {
+            "one_launch": bool(st.mix_tile(qi, p)),
             "kern": lambda u: st.ms_mix_apply(ops, ainv, 0.1, u),
             "plain": lambda u: st.ms_mix_apply_ref(ops, ainv, 0.1, u),
             "lib": ms_mix_conv(ops, ainv, 0.1) if q1 else None,
@@ -1395,6 +1419,8 @@ def measure_kernels(device, cases=None) -> list[dict]:
         other = "library" if lib is not None else "twin" if twin is not None else None
         order = ("kernel", other, other, "kernel") if other else ("kernel",) * 2
         marker = DEVICE_NAMES.get(key, (key,))
+        if key == "ms_mix_apply" and not c["one_launch"]:
+            marker = None  # K1's route: K2 and the split march, every device op of a call
         fmt = lambda v: "not seen" if v is None else f"{v:.4f}"  # noqa: E731
         turns = []
         for t in range(TURNS):
@@ -1486,6 +1512,76 @@ def measure_kernels(device, cases=None) -> list[dict]:
         del sets, warm, cold, c
         torch.cuda.empty_cache()
     return results
+
+
+# K3dg's diagnostic arms (``measure_arms``): (q, refinement, degree) — P4's
+# 255 level at p = 1 (six lanes), P16's 191 and P17's 255 levels (q=4)
+ARM_CASES = [(6, 8, 1), (4, 6, 3), (4, 6, 4)]
+ARMS = {"kernel": 0, "passes only": 1, "copies only": 2}
+
+
+def cheb_dg_arm(ops, a, b, c1, c2, d, r, x, arm: int):
+    """K3dg's march in one of its diagnostic arms (csrc/cheb_iter.cu::
+    spirk_cheb_iter_dg_arm; 0: the kernel itself, through its wrapper):
+    1 the passes and the update on resident planes, no copy and no store;
+    2 the copies and stores alone (r' = r, d' = d, x' = x)."""
+    from dealii_spirk_tpu_torch.ops.cuda import stencil as st
+
+    if arm == 0:
+        return st.cheb_iter_dg(ops, a, b, c1, c2, d, r, x)
+    q, m = d.shape[0], ops.m
+    outs = [torch.empty_like(d) for _ in range(3)]
+    tabs = [st._stage_coefs(t, q, d.device) for t in (a, c1, c2)]
+    st._launch_raw(
+        "spirk_cheb_iter_dg_arm", d.device,
+        *(t.data_ptr() for t in (d, r, x, ops.mass_diag, ops.stiff_diag, *outs,
+                                 ops.mass_band, ops.stiff_band, tabs[0])),
+        float(b), tabs[1].data_ptr(), tabs[2].data_ptr(), q, m, *st._runs_plan(ops, q, m),
+        ops.p, arm)
+    return tuple(outs)
+
+
+def measure_arms(device) -> list[dict]:
+    """K3dg at ARM_CASES in each of ARMS, in TURNS turns of every arm in
+    order: device time per launch from ``torch.profiler`` and time per call
+    from CUDA events, L2-cold (rotating input sets), the least over the
+    turns.  The passes-only arm is what the shared-memory passes take with
+    no DRAM traffic, the copies-only arm what the memory pipeline takes
+    with no pass; numbers, not gates."""
+    from dealii_spirk_tpu_torch.fem.grid import make_level
+    from dealii_spirk_tpu_torch.ops.mass_laplace import level_ops
+
+    out = []
+    for q, ref, p in ARM_CASES:
+        ops = level_ops(make_level(ref, p), torch.float32, device)
+        m = ops.m
+        gen = device_generator(device, 7 * ref + p)
+        a, c1, c2 = (torch.linspace(lo, lo + 1, q, device=device) for lo in (0.5, 0.2, 0.1))
+        n_sets = max(2, -(-2 * L2_CACHE_BYTES // (4 * 6 * q * m**3)))
+        sets = [tuple(uniform_field((q, m, m, m), -1.0, 1.0, device, gen) for _ in range(3))
+                for _ in range(n_sets)]
+        bnd = bound("cheb_iter_dg", q, q, m**3, p, 3)
+        row = {"at": f"3D p={p} m={m} q={q}", "bound_ms": bnd[0]}
+        for _turn in range(TURNS):
+            for name, arm in ARMS.items():
+                call = _rotating(lambda d, r, x, arm=arm: cheb_dg_arm(
+                    ops, a, 0.1, c1, c2, d, r, x, arm), sets)
+                ms = timed_calls(call)[0]
+                dev = device_ms(call, DEVICE_NAMES["cheb_iter_dg"])[0]
+                best = row.setdefault(name, {"cold_ms": ms, "cold_device_ms": dev})
+                best["cold_ms"] = min(best["cold_ms"], ms)
+                if dev is not None and (best["cold_device_ms"] is None
+                                        or dev < best["cold_device_ms"]):
+                    best["cold_device_ms"] = dev
+        fmt = lambda v: "not seen" if v is None else f"{v:.4f}"  # noqa: E731
+        say(f"arms K3dg {row['at']}, L2-cold, least of {TURNS} turns (device per launch / per "
+            f"call, ms): " + "; ".join(f"{name} {fmt(row[name]['cold_device_ms'])} / "
+                                      f"{row[name]['cold_ms']:.4f}" for name in ARMS)
+            + f"; DRAM bound {bnd[0]:.4f}")
+        out.append(row)
+        del sets
+        torch.cuda.empty_cache()
+    return out
 
 
 def smooth_cases_2d(device):
@@ -2332,7 +2428,9 @@ def main() -> int:
 
     report = check_kernels(device)
     measured = measure_kernels(device)
+    arms = measure_arms(device)
     launches = run_paths(device, smi)
+    say(json.dumps({"k3dg_arms": arms}))
     say(json.dumps(kernel_summary(report, launches, measured)))
     say(json.dumps({
         "ok": True,

@@ -33,7 +33,7 @@ namespace spirk {
 
 // d: the operand; r, x: the step's fields; invd: D^-1 (K3, K9c) or null;
 // mdiag, kdiag: the level's 1D diagonals (K3dg, K9d) or null
-template <class Mode>
+template <class Mode, int ARM = 0>
 int cheb_entry(const float* d, const float* r, const float* x, const float* invd,
                const float* mdiag, const float* kdiag, float* r_out, float* d_out,
                float* x_out, const float* mband, const float* kband, const float* a, float b,
@@ -58,7 +58,7 @@ int cheb_entry(const float* d, const float* r, const float* x, const float* invd
   g.m = m;
   g.chunk = chunk;
   g.zs = zs;
-  return march_entry<Mode>(g, q, p, stream);
+  return march_entry<Mode, ARM>(g, q, p, stream);
 }
 
 }  // namespace spirk
@@ -107,4 +107,25 @@ extern "C" int spirk_cheb_iter_dg_halo(const float* d, const float* r, const flo
   return spirk::cheb_entry<spirk::ChebDiag>(d, r, x, nullptr, mdiag, kdiag, r_out, d_out,
                                             x_out, mband, kband, a, b, c1, c2, q, m,
                                             spirk::ZSlab{nzl, p, z_off}, chunk, p, stream);
+}
+
+// K3dg's diagnostic arms (march.cuh ARM; not a kernel of any path, and no
+// LAUNCHES count): arm 1 the passes alone on resident planes, arm 2 the
+// copies and stores alone; the arguments of spirk_cheb_iter_dg, then arm
+extern "C" int spirk_cheb_iter_dg_arm(const float* d, const float* r, const float* x,
+                                      const float* mdiag, const float* kdiag, float* r_out,
+                                      float* d_out, float* x_out, const float* mband,
+                                      const float* kband, const float* a, float b,
+                                      const float* c1, const float* c2, int q, int m,
+                                      int chunk, int p, int arm, void* stream) {
+  const spirk::ZSlab zs = spirk::whole_field(m);
+  if (arm == spirk::PASSES)
+    return spirk::cheb_entry<spirk::ChebDiag, spirk::PASSES>(
+        d, r, x, nullptr, mdiag, kdiag, r_out, d_out, x_out, mband, kband, a, b, c1, c2, q, m,
+        zs, chunk, p, stream);
+  if (arm == spirk::COPIES)
+    return spirk::cheb_entry<spirk::ChebDiag, spirk::COPIES>(
+        d, r, x, nullptr, mdiag, kdiag, r_out, d_out, x_out, mband, kband, a, b, c1, c2, q, m,
+        zs, chunk, p, stream);
+  return cudaErrorInvalidValue;
 }

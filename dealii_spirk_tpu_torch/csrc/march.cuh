@@ -20,8 +20,8 @@
 //
 // One block of NTHREADS threads owns one stage's TY x MX = 16 x 64 (y, x)
 // output tile (Mix: every stage's, TY x 64) and marches over a chunk of z
-// planes (at most MZC; the wrapper picks the chunk per launch so that a
-// launch has at least two blocks per SM where the field allows,
+// planes (at most March::ZC; the wrapper picks the chunk per launch so that
+// a launch has at least two blocks per SM where the field allows,
 // ops/cuda/stencil.py::march_plan).  It keeps a ring of 2p + 2 haloed
 // planes of each operand in shared memory (MixSplit two, Mix one per
 // stage): the 2p + 1 that the z pass of the current plane reads and the
@@ -41,7 +41,18 @@
 // (C = My E + Ky F, D = My F), the x pass per output point (Mx C + Kx D;
 // MassStiff and Mix also M d = Mx D) and the mode's update (Mix: adds
 // A^-1[i, j] M d_j + [i = j] tau_j K d_j into q accumulators per point,
-// stored once every stage is in).  The y and x passes sum the stiffness
+// stored once every stage is in).  Each pass reads its 2p + 1 taps from
+// shared memory, so above p = 1 the passes set as much of the time as the
+// copies: at P17's shape (p = 4) K3dg's passes alone took 0.70 ms and its
+// copies alone 0.74, against 1.11 for the kernel and a DRAM bound of 0.48
+// (PERF.md).  So K3dg, K9d and MixSplit at p >= 3 (March::RUNS) take the z
+// pass over groups of 4 adjacent points in 16-byte loads (on the H100
+// 2.7-3.6% off each at p = 4 against z_sums per point, PERF.md), the y
+// pass in runs of 4 tile rows of a column summed from the 4 + 2p entries
+// read once (y_run), each thread one run (the last 2p columns a row each),
+// and chunks of up to 32 (p = 3) or 64 (p = 4) planes.  Every point keeps its
+// taps, weights and order of sums, so these modes keep their bytes.  The y
+// and x passes sum the stiffness
 // taps apart from the mass taps and add the two sums, the plain version's
 // order: one accumulator for both (the earlier tile kernels) gave K3dg's r'
 // on a smooth field at P4's 255 level a mean error against f64 ten times the
@@ -96,21 +107,39 @@ struct March {
   static constexpr int HX = MX + 2 * P;  // haloed extents
   static constexpr int HY = TY + 2 * P;
   static constexpr int PLANE = HY * HX;  // one haloed plane of an operand
+  static constexpr bool DIAG = std::is_same<Mode, ChebDiag>::value;
+  static constexpr bool MIX = Mode::RINGS == 0;
+  // K3dg, K9d and K1's split march at p >= 3 (RUNS): the z pass over groups
+  // of 4 adjacent points in 16-byte loads and stores (z_pass), the y pass in
+  // runs (y_run: a thread sums RY tile rows of one column from registers,
+  // its rows' weights in 16-byte loads of [mass, stiff][row][k] rows of NBP
+  // = NB rounded up to 4 floats; the last 2p columns a row per thread)
+  // and chunks of up to ZC = 2 MZC planes at p = 3, 4 MZC at p = 4 (the z
+  // halo of 2p planes is read once per chunk; stencil.py
+  // MARCH_RUNS_MAX_CHUNK); the other modes and degrees keep z_sums and
+  // y_sums per point over [mass, stiff][k][row] and chunks of MZC
+  static constexpr bool RUNS = (DIAG || std::is_same<Mode, MixSplit>::value) && P >= 3;
   static constexpr int RING = 2 * P + 2;  // planes z - p .. z + p and the next one
   static constexpr int LOADS = (PLANE + NTHREADS - 1) / NTHREADS;  // a plane's copies per thread
   static constexpr int YP = TY * HX;      // one field after the y pass
   static constexpr int MOUT = TY * MX / NTHREADS;  // output points of a thread per plane
   static constexpr int RX = 2 * Mode::FIELDS * MOUT * NTHREADS;  // the fields of two planes
-  static constexpr int ZW = 2 * NB * MZC;  // z band rows of a chunk
-  static constexpr int YW = 2 * NB * TY;   // y band rows of the tile
-  static constexpr bool DIAG = std::is_same<Mode, ChebDiag>::value;
-  static constexpr bool MIX = Mode::RINGS == 0;
-  static constexpr int DG = DIAG ? 2 * MZC + 2 * TY : 0;  // 1D diagonals at the chunk's z, tile's y
-  static_assert(TY % MROWS == 0, "threads must tile the plane");
+  static constexpr int ZC = RUNS ? (P >= 4 ? 4 : 2) * MZC : MZC;  // most z planes a block marches
+  static constexpr int ZW = 2 * NB * ZC;  // z band rows of a chunk
+  static constexpr int DG = DIAG ? 2 * ZC + 2 * TY : 0;  // 1D diagonals at the chunk's z, tile's y
+  static constexpr int RY = 4;
+  static constexpr int NBP = (NB + 3) / 4 * 4;
+  static constexpr int YW = RUNS ? 2 * TY * NBP : 2 * NB * TY;  // y band rows of the tile
+  static_assert(TY % MROWS == 0 && TY % RY == 0, "threads must tile the plane");
+  static_assert(!RUNS || (TY / RY * MX == NTHREADS && 2 * P * TY <= NTHREADS &&
+                          PLANE % 4 == 0),
+                "the runs take 16 x 64 tiles and planes of whole 4-point groups");
   // shared floats: the rings, the z-pass fields E, F, the y-pass fields C,
   // D, the per-point fields, the band rows, the 1D diagonals (Mix: with one
   // stage's ring; a launch adds a ring per further stage)
   static constexpr int REST = 2 * PLANE + 2 * YP + RX + ZW + YW + DG;
+  static_assert(!RUNS || (Mode::RINGS * RING * PLANE + 2 * PLANE + 2 * YP + RX + ZW) % 4 == 0,
+                "the y band rows must be 16-byte aligned");
   static constexpr int SMEM_FLOATS = (MIX ? 1 : Mode::RINGS) * RING * PLANE + REST;
   static_assert(SMEM_FLOATS * 4 <= 232448, "the march does not fit a block's shared memory");
   // resident blocks per SM that the shared memory allows (228 KB, 1 KB of
@@ -143,7 +172,7 @@ struct MarchArgs {
   float b;             // MixSplit: tau
   int m;
   int q;      // stages of the launch (Mix: of every block)
-  int chunk;  // z planes per block, 1..MZC
+  int chunk;  // z planes per block, 1..March::ZC
   ZSlab zs;
 };
 
@@ -236,6 +265,44 @@ __device__ __forceinline__ void y_sums(const float* E, const float* F, const flo
   d = dd;
 }
 
+// y pass of RY tile rows r0 .. r0 + RY - 1 at column col of E and F (rows
+// HX apart): the RY + NB - 1 entries each row reads, once, into registers,
+// then per row y_sums' three sums in its order from the row's weights (yw:
+// [mass, stiff][row][NBP], 16-byte loads); so a point's C and D are those
+// of y_sums
+template <int NB, int NBP, int RY, int TY, int HX>
+__device__ __forceinline__ void y_run(const float* E, const float* F, const float* yw, int r0,
+                                      int col, float* C, float* D) {
+  constexpr int NW = RY + NB - 1;
+  float e[NW], f[NW];
+#pragma unroll
+  for (int j = 0; j < NW; ++j) {
+    e[j] = E[(r0 + j) * HX + col];
+    f[j] = F[(r0 + j) * HX + col];
+  }
+#pragma unroll
+  for (int r = 0; r < RY; ++r) {
+    float wm[NBP], wk[NBP];
+    const float4* m4 = reinterpret_cast<const float4*>(yw + (r0 + r) * NBP);
+    const float4* k4 = reinterpret_cast<const float4*>(yw + (TY + r0 + r) * NBP);
+#pragma unroll
+    for (int v = 0; v < NBP / 4; ++v) {
+      const float4 a = m4[v], b = k4[v];
+      wm[4 * v] = a.x, wm[4 * v + 1] = a.y, wm[4 * v + 2] = a.z, wm[4 * v + 3] = a.w;
+      wk[4 * v] = b.x, wk[4 * v + 1] = b.y, wk[4 * v + 2] = b.z, wk[4 * v + 3] = b.w;
+    }
+    float cm = 0.f, ck = 0.f, dd = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < NB; ++kk) {
+      cm = fmaf(wm[kk], e[r + kk], cm);
+      ck = fmaf(wk[kk], f[r + kk], ck);
+      dd = fmaf(wm[kk], f[r + kk], dd);
+    }
+    C[(r0 + r) * HX + col] = cm + ck;
+    D[(r0 + r) * HX + col] = dd;
+  }
+}
+
 // x pass over C and D from entry c0 on: Mx C + Kx D, the mass taps and the
 // stiffness taps in sums of their own; MU: mu = Mx D too (M d)
 template <int NB, bool MU>
@@ -267,9 +334,15 @@ __device__ __forceinline__ float cheb_d(float c1, float d, float c2, float z) {
   return fmaf(c1, d, c2 * z);
 }
 
+// ARM (a diagnostic of ChebDiag, cheb_iter.cu::spirk_cheb_iter_dg_arm): 0 the
+// kernel; PASSES the three passes and the update on planes already resident
+// in shared memory (zeros), with no cp.async and no global store; COPIES the
+// copies and stores alone (r' = r, d' = d at the centre, x' = x), no pass
+constexpr int PASSES = 1, COPIES = 2;
+
 // grid (ceil(m / MX), ceil(m / TY), ceil(zs.nz / chunk) per stage, times q
 // but for Mix)
-template <int P, class Mode>
+template <int P, class Mode, int ARM = 0>
 __global__ void __launch_bounds__(NTHREADS, (March<P, Mode>::BLOCKS))
 march(const MarchArgs g) {
   using G = March<P, Mode>;
@@ -280,7 +353,7 @@ march(const MarchArgs g) {
   constexpr bool SPLIT = std::is_same<Mode, MixSplit>::value;
   constexpr bool MIX = G::MIX;
   constexpr bool SHIFTED = !(MS || SPLIT || MIX);  // reads the (q,) table a
-  extern __shared__ float smem[];
+  extern __shared__ float smem[];  // 16-byte aligned: the dynamic block starts it
   const int nrings = MIX ? g.q : Mode::RINGS;
   float* ring = smem;                    // [ring][RING][HY][HX]
   float* E = ring + nrings * RING * PLANE;  // [HY][HX]
@@ -291,8 +364,9 @@ march(const MarchArgs g) {
   float* zw = rx + G::RX;                // [mass, stiff][k][chunk plane]
   float* yw = zw + G::ZW;                // [mass, stiff][k][tile row]
   float* zdg = yw + G::YW;               // ChebDiag: [mass, stiff][chunk plane]
-  float* ydg = zdg + 2 * MZC;            // ChebDiag: [mass, stiff][tile row]
+  float* ydg = zdg + 2 * G::ZC;          // ChebDiag: [mass, stiff][tile row]
 
+  constexpr bool RESIDENT = ARM == PASSES;  // no copy
   const int tid = threadIdx.x;
   const int m = g.m;
   const ZSlab zs = g.zs;
@@ -326,6 +400,7 @@ march(const MarchArgs g) {
   // plane j of the chunk (operand plane z0 + j + halo; zeros beyond the
   // operand) of every operand into ring slot (j + p) % RING
   auto load_d = [&](int j) {
+    if constexpr (RESIDENT) return;
     const int gz = z0 + j + zs.halo;
     const bool zin = gz >= 0 && gz < nz_in;
     for (int rg = 0; rg < nrings; ++rg)
@@ -334,7 +409,7 @@ march(const MarchArgs g) {
   };
   // the per-point fields at this thread's points of plane j into buffer j & 1
   auto load_fields = [&](int j) {
-    if constexpr (NF > 0) {
+    if constexpr (NF > 0 && !RESIDENT) {
       const long long base = oq + (long long)(z0 + j) * mm;
       float* dst = rx + (j & 1) * NF * MOUT * NTHREADS;
 #pragma unroll
@@ -349,18 +424,30 @@ march(const MarchArgs g) {
     }
   };
 
+  if constexpr (RESIDENT) {  // resident planes and fields: zeros
+    for (int i = tid; i < nrings * RING * PLANE; i += NTHREADS) ring[i] = 0.f;
+    for (int i = tid; i < G::RX; i += NTHREADS) rx[i] = 0.f;
+  }
   // prologue: planes -p .. p of the operands and the fields of plane 0 in
   // flight, then the band rows (and diagonals) of the chunk and tile
   for (int j = -P; j <= P; ++j) load_d(j);
   load_fields(0);
   cp_async_commit();
-  load_band_rows<MZC>(zw, g.mband, g.kband, NB, m, zs.z_off + z0);
-  load_band_rows<TY>(yw, g.mband, g.kband, NB, m, y0);
+  load_band_rows<G::ZC>(zw, g.mband, g.kband, NB, m, zs.z_off + z0);
+  if constexpr (G::RUNS) {  // [mass, stiff][row][NBP], zero past NB and m
+    for (int i = tid; i < G::YW; i += NTHREADS) {
+      const int k = i % G::NBP, r = (i / G::NBP) % TY, gy = y0 + r;
+      const float* band = i < TY * G::NBP ? g.mband : g.kband;
+      yw[i] = k < NB && gy < m ? band[k * m + gy] : 0.f;
+    }
+  } else {
+    load_band_rows<TY>(yw, g.mband, g.kband, NB, m, y0);
+  }
   float xdm = 0.f, xdk = 0.f;
   if constexpr (G::DIAG) {
-    for (int i = tid; i < 2 * MZC; i += NTHREADS) {
-      const int gi = zs.z_off + z0 + i % MZC;
-      zdg[i] = gi < m ? __ldg((i < MZC ? g.mdiag : g.kdiag) + gi) : 0.f;
+    for (int i = tid; i < 2 * G::ZC; i += NTHREADS) {
+      const int gi = zs.z_off + z0 + i % G::ZC;
+      zdg[i] = gi < m ? __ldg((i < G::ZC ? g.mdiag : g.kdiag) + gi) : 0.f;
     }
     for (int i = tid; i < 2 * TY; i += NTHREADS) {
       const int gi = y0 + i % TY;
@@ -389,8 +476,46 @@ march(const MarchArgs g) {
 #pragma unroll
     for (int kk = 0; kk < NB; ++kk) {
       pl[kk] = ring + (rg * RING + (k + kk) % RING) * PLANE;  // plane k - p + kk
-      wzm[kk] = zw[kk * MZC + k];
-      wzk[kk] = zw[(NB + kk) * MZC + k];
+      wzm[kk] = zw[kk * G::ZC + k];
+      wzk[kk] = zw[(NB + kk) * G::ZC + k];
+    }
+    if constexpr (G::RUNS) {  // groups of 4 points: z_sums' sums in its order
+      for (int v = tid; v < PLANE / 4; v += NTHREADS) {
+        float zm[4] = {}, zk[4] = {}, um[4] = {}, uk[4] = {};
+#pragma unroll
+        for (int kk = 0; kk < NB; ++kk) {
+          const float4 d4 = reinterpret_cast<const float4*>(pl[kk])[v];
+          const float dv[4] = {d4.x, d4.y, d4.z, d4.w};
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            zm[c] = fmaf(wzm[kk], dv[c], zm[c]);
+            if constexpr (!SPLIT) zk[c] = fmaf(wzk[kk], dv[c], zk[c]);
+          }
+          if constexpr (SPLIT) {  // zm is Zm v; Zm d and Zk d from ring 1
+            const float4 u4 = reinterpret_cast<const float4*>(pl[kk] + RING * PLANE)[v];
+            const float uv[4] = {u4.x, u4.y, u4.z, u4.w};
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              um[c] = fmaf(wzm[kk], uv[c], um[c]);
+              uk[c] = fmaf(wzk[kk], uv[c], uk[c]);
+            }
+          }
+        }
+        float e[4], f[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          if constexpr (SPLIT) {
+            e[c] = zm[c] + b * uk[c];
+            f[c] = b * um[c];
+          } else {
+            e[c] = shifted_e(a, b, zm[c], zk[c]);
+            f[c] = b * zm[c];
+          }
+        }
+        reinterpret_cast<float4*>(E)[v] = make_float4(e[0], e[1], e[2], e[3]);
+        reinterpret_cast<float4*>(F)[v] = make_float4(f[0], f[1], f[2], f[3]);
+      }
+      return;
     }
 #pragma unroll
     for (int s = 0; s < G::LOADS; ++s) {
@@ -416,7 +541,15 @@ march(const MarchArgs g) {
   // y pass over the tile rows and the haloed x extent: C = My E + Ky F,
   // D = My F, the stiffness taps Ky F summed apart from the mass taps
   auto y_pass = [&]() {
-    for (int i = tid; i < G::YP; i += NTHREADS) y_sums<NB>(E, F, yw, TY, i / HX, i, HX, C[i], D[i]);
+    if constexpr (G::RUNS) {  // a run of RY rows of one of the first MX columns per thread,
+      // then a row of one of the last 2p columns for the first 2p TY threads
+      y_run<NB, G::NBP, G::RY, TY, HX>(E, F, yw, tid / MX * G::RY, tid % MX, C, D);
+      if (tid < 2 * P * TY)
+        y_run<NB, G::NBP, 1, TY, HX>(E, F, yw, tid / (2 * P), MX + tid % (2 * P), C, D);
+    } else {
+      for (int i = tid; i < G::YP; i += NTHREADS)
+        y_sums<NB>(E, F, yw, TY, i / HX, i, HX, C[i], D[i]);
+    }
   };
   // x pass and the mode's update at this thread's points of plane k (Mix:
   // of input stage j)
@@ -450,15 +583,20 @@ march(const MarchArgs g) {
           g.d_out[gi] = ad;
         } else if constexpr (NF == 0) {
           g.out[gi] = ad;
+        } else if constexpr (ARM == COPIES) {
+          g.out[gi] = fk[s * NTHREADS];
+          g.d_out[gi] = centre[c0];
+          g.x_out[gi] = fk[(MOUT + s) * NTHREADS];
         } else {
           const float rn = fk[s * NTHREADS] - ad;
           float z;
           if constexpr (G::DIAG) {
-            z = rn / jacobi_diag(a, b, zdg[k], zdg[MZC + k], ydg[ly], ydg[TY + ly], xdm, xdk);
+            z = rn / jacobi_diag(a, b, zdg[k], zdg[G::ZC + k], ydg[ly], ydg[TY + ly], xdm, xdk);
           } else {
             z = fk[(2 * MOUT + s) * NTHREADS] * rn;
           }
           const float dn = cheb_d(c1, centre[c0], c2, z);
+          if (ARM == PASSES && zs.nz > 0) continue;  // (always): no store
           g.out[gi] = rn;
           g.d_out[gi] = dn;
           g.x_out[gi] = fk[(MOUT + s) * NTHREADS] + dn;
@@ -502,40 +640,40 @@ march(const MarchArgs g) {
       }
       store_mix(k);
     } else {
-      z_pass(k, 0);
+      if constexpr (ARM != COPIES) z_pass(k, 0);
       __syncthreads();
-      y_pass();
+      if constexpr (ARM != COPIES) y_pass();
       __syncthreads();
       x_pass(k, 0);
     }
   }
 }
 
-template <int P, class Mode>
+template <int P, class Mode, int ARM = 0>
 cudaError_t launch_march(const MarchArgs& g, int q, cudaStream_t stream) {
   using G = March<P, Mode>;
+  if (g.chunk < 1 || g.chunk > G::ZC) return cudaErrorInvalidValue;
   const int bytes = ((G::MIX ? q : Mode::RINGS) * G::RING * G::PLANE + G::REST) * sizeof(float);
   if (bytes > 232448) return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(march<P, Mode>, bytes);
+  cudaError_t err = allow_smem(march<P, Mode, ARM>, bytes);
   if (err != cudaSuccess) return err;
   const int nch = (g.zs.nz + g.chunk - 1) / g.chunk;
   const dim3 grid((g.m + MX - 1) / MX, (g.m + G::TY - 1) / G::TY, G::MIX ? nch : q * nch);
   MarchArgs args = g;
   args.q = q;
-  march<P, Mode><<<grid, NTHREADS, bytes, stream>>>(args);
+  march<P, Mode, ARM><<<grid, NTHREADS, bytes, stream>>>(args);
   return cudaGetLastError();
 }
 
 // p: 1..4
-template <class Mode>
+template <class Mode, int ARM = 0>
 int march_entry(const MarchArgs& g, int q, int p, void* stream) {
-  if (g.chunk < 1 || g.chunk > MZC) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (p) {
-    case 1: return launch_march<1, Mode>(g, q, s);
-    case 2: return launch_march<2, Mode>(g, q, s);
-    case 3: return launch_march<3, Mode>(g, q, s);
-    case 4: return launch_march<4, Mode>(g, q, s);
+    case 1: return launch_march<1, Mode, ARM>(g, q, s);
+    case 2: return launch_march<2, Mode, ARM>(g, q, s);
+    case 3: return launch_march<3, Mode, ARM>(g, q, s);
+    case 4: return launch_march<4, Mode, ARM>(g, q, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -20,11 +20,14 @@
 // (ops/cuda/stencil.py::mix_tile); QMAX sums live in registers only on the
 // 8-row tile (2 output points per thread), so above 4 stages TY is 8.
 //
-// Where no tile height fits the q rings (p = 3 with q >= 7, p = 4 with
-// q >= 5), the plan routes K1 through K2 (stage_mix.cu: v = Ainv u) and
-// spirk_ms_mix_apply_split, the march's MixSplit mode: a block marches one
-// stage with two rings, v_i and u_i; z pass E = Mz v_i + tau Kz u_i,
-// F = tau Mz u_i, then Apply's y and x passes give out_i = M v_i + tau K u_i.
+// Where no tile height fits the q rings (p = 3 with q >= 7), and at p = 4
+// wherever no tile lets two blocks share an SM (q >= 3: one Mix<8, 4> block
+// per SM read 0.100 of its bound at q = 4), the plan routes K1 through K2
+// (stage_mix.cu: v = Ainv u) and spirk_ms_mix_apply_split, the march's
+// MixSplit mode: a block marches one stage with two rings, v_i and u_i; z
+// pass E = Mz v_i + tau Kz u_i, F = tau Mz u_i, then Apply's y and x passes
+// (the y pass at p >= 3 from registers, march.cuh March::RUNS, y_run) give
+// out_i = M v_i + tau K u_i.
 //
 // Bound on the H100: DRAM (Mix 2 field passes per point, MixSplit 3, against
 // about 60 + 2q flops per point at p = 1).

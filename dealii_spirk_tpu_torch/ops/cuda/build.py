@@ -63,6 +63,12 @@ SIGNATURES = {
     "spirk_stage_mix": (_P, _P, _P, _I, _I, ctypes.c_longlong, _P),
 }
 
+# diagnostics that no path launches (no LAUNCHES count): K3dg's arms, the
+# arguments of spirk_cheb_iter_dg with the arm before the stream
+DIAGNOSTICS = {
+    "spirk_cheb_iter_dg_arm": SIGNATURES["spirk_cheb_iter_dg"][:-1] + (_I, _P),
+}
+
 _lib: ctypes.CDLL | None = None
 
 
@@ -127,7 +133,7 @@ def load_library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        for name, argtypes in SIGNATURES.items():
+        for name, argtypes in (SIGNATURES | DIAGNOSTICS).items():
             fn = getattr(lib, name)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int

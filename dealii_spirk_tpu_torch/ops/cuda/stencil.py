@@ -79,6 +79,13 @@ QMAX = 8  # most stages the stage-coupled kernels hold (csrc/common.cuh)
 # have at least: two per SM of the H100 (132 SMs)
 MARCH_TILE = (16, 64)
 MARCH_MAX_CHUNK = 16
+# the most planes a block of K3dg, K9d or the split march marches at p = 3
+# and 4 (csrc March::ZC, ``march_runs``): a chunk reads the 2p-plane z halo
+# once, so chunks of 32 took K3dg at P17's shape from 1.0203 to 0.9647 ms on
+# the H100 and chunks of 64 from 0.9210 to 0.8996 ms; at P16's (p = 3, m =
+# 191) chunks of 64 leave 432 blocks, 1.6 waves of two per SM, and took
+# 0.3605 against 0.3274 with 32 (PERF.md)
+MARCH_RUNS_MAX_CHUNK = {3: 32, 4: 64}
 MARCH_MIN_BLOCKS = 2 * 132
 # K8's blocks run stage 1 on 2p more planes per chunk: at P4's 255 level
 # chunks of 32 planes ran 3% faster than chunks of 16 on the H100 (csrc
@@ -303,6 +310,20 @@ def march_plan(q: int, nz: int, m: int, ty: int = MARCH_TILE[0],
     return chunk, (tiles[0], tiles[1], lanes * -(-nz // chunk))
 
 
+def march_runs(mode: str, p: int) -> bool:
+    """Whether the mode's y pass runs from registers (csrc March::RUNS: K3dg,
+    K9d and K1's split march at p >= 3): in runs of rows, with its y band
+    rows laid out [mass, stiff][row][k] (k padded to a multiple of 4), and
+    chunks of up to MARCH_RUNS_MAX_CHUNK planes."""
+    return mode in ("ChebDiag", "MixSplit") and p >= 3
+
+
+def march_max_chunk(mode: str, p: int) -> int:
+    """The most planes one block of ``mode`` marches at degree ``p`` (csrc
+    March::ZC)."""
+    return MARCH_RUNS_MAX_CHUNK[p] if march_runs(mode, p) else MARCH_MAX_CHUNK
+
+
 def march_smem_bytes(p: int, ty: int, rings: int) -> int:
     """Shared memory of a z-march block without per-point fields (csrc
     March<P, Mode>): ``rings`` rings of 2p + 2 haloed planes, the z-pass
@@ -348,11 +369,15 @@ def mix_tile(q: int, p: int) -> int:
     """K1's tile height at degree ``p`` with ``q`` stages: the tallest of
     MIX_TILES whose block (a ring per stage) lets two blocks share an SM,
     else the tallest that fits one block, else 0: no block holds the q
-    rings (p = 3 with q >= 7, p = 4 with q >= 5), and K1 takes the route
-    K2 + ``ms_mix_apply_split``.  Above 4 stages a thread keeps QMAX sums
-    per output point, and only the 8-row tile (2 points) keeps them in
-    registers (csrc/ms_mix_apply.cu)."""
-    for per_sm in (2, 1):
+    rings (p = 3 with q >= 7), and K1 takes the route K2 +
+    ``ms_mix_apply_split``.  At p = 4 the one-block form is left out, so K1
+    takes the route wherever no tile lets two blocks share an SM (q >= 3):
+    one ``Mix<8, 4>`` block per SM (8-row tile, 2q barriers a plane) read
+    0.100 of its bound at P17's shape, and the route's split march runs its
+    passes from registers (``march_runs``; PERF.md, section 6).  Above 4
+    stages a thread keeps QMAX sums per output point, and only the 8-row
+    tile (2 points) keeps them in registers (csrc/ms_mix_apply.cu)."""
+    for per_sm in (2,) if p >= 4 else (2, 1):
         for ty in MIX_TILES if q <= 4 else MIX_TILES[1:]:
             nbytes = march_smem_bytes(p, ty, q)
             if nbytes <= BLOCK_SMEM_BYTES and per_sm * (nbytes + 1024) <= SM_SMEM_BYTES:
@@ -366,6 +391,12 @@ def march_planes(nz: int, chunk: int, bz: int) -> tuple[int, int, int]:
     nch = -(-nz // chunk)
     z0 = (bz % nch) * chunk
     return bz // nch, z0, min(z0 + chunk, nz)
+
+
+def _runs_plan(ops: LevelOps, q: int, nz: int, mode: str = "ChebDiag") -> tuple[int]:
+    """(chunk,) of a K3dg, K9d or split-march launch: ``march_plan`` with
+    the mode's most planes per block at the level's degree."""
+    return (march_plan(q, nz, ops.m, max_chunk=march_max_chunk(mode, ops.p))[0],)
 
 
 def _march(name: str, ops: LevelOps, q: int, nz: int, fields: tuple, a, b, cs=(),
@@ -481,7 +512,8 @@ def cheb_iter_dg(ops: LevelOps, a, b, c1, c2, d, r, x):
         _check_field(t, (m,), "1D diagonal")
     r_out, d_out, x_out = (torch.empty_like(d) for _ in range(3))
     _march("spirk_cheb_iter_dg", ops, q, m,
-           (d, r, x, ops.mass_diag, ops.stiff_diag, r_out, d_out, x_out), a, b, (c1, c2))
+           (d, r, x, ops.mass_diag, ops.stiff_diag, r_out, d_out, x_out), a, b, (c1, c2),
+           plan=_runs_plan(ops, q, m))
     LAUNCHES["cheb_iter_dg"] += 1
     return r_out, d_out, x_out
 
@@ -581,7 +613,7 @@ def cheb_iter_dg_halo(ops: LevelOps, a, b, c1, c2, d_h, r, x):
     r_out, d_out, x_out = (torch.empty_like(r) for _ in range(3))
     _march("spirk_cheb_iter_dg_halo", ops, q, nzl,
            (d_h, r, x, ops.mass_diag, ops.stiff_diag, r_out, d_out, x_out), a, b, (c1, c2),
-           (nzl, ops.z_off))
+           (nzl, ops.z_off), plan=_runs_plan(ops, q, nzl))
     LAUNCHES["cheb_iter_dg_halo"] += 1
     return r_out, d_out, x_out
 
@@ -621,7 +653,7 @@ def ms_mix_apply_split(ops: LevelOps, tau, v: torch.Tensor, u: torch.Tensor) -> 
     _check_field(v, u.shape, "v")
     out = torch.empty_like(u)
     _launch("spirk_ms_mix_apply_split", v, u, out, ops.mass_band, ops.stiff_band, float(tau),
-            q, m, march_plan(q, m, m)[0], p)
+            q, m, *_runs_plan(ops, q, m, "MixSplit"), p)
     LAUNCHES["ms_mix_apply_split"] += 1
     return out
 

@@ -23,6 +23,13 @@ card (``chip_smoke.py``), the plan and the launch arguments are Python.
   ``build.SIGNATURES``'s arguments in order; ``mix_tile`` picks the route
   exactly where no block holds the q rings, and ``march_smem_bytes`` is
   the shared memory ptxas reported for the Apply mode;
+* the y pass in runs (``march_runs``: K3dg, K9d and the split march at
+  p >= 3): each mode's layout at p = 1-4 (``_mode_smem_bytes``, a mirror
+  of csrc ``March<P, Mode>``) is the shared memory the card's launches
+  reported, with the blocks per SM it allows; their launches at Q3's 191
+  and Q4's 255 levels cover every plane once in chunks of up to
+  ``MARCH_RUNS_MAX_CHUNK``; K1's form per path (Mix's tile, or the route
+  at Q4), and every form ``mix_tile`` picks is held by a kernel case;
 * K1's library call (``chip_smoke.ms_mix_conv``, one dense conv3d) is K1's
   function: at p = 1 in f64 it equals ``ms_mix_apply_ref``;
 * K8 (the march's pair form): ``pair_tile`` picks 16 rows at p = 1 and 3
@@ -233,11 +240,11 @@ K1_SHAPES = _k1_launches()
 MS_SHAPES = _ms_launches()
 
 
-def _covered(q, nz, m, ty, per_stage):
+def _covered(q, nz, m, ty, per_stage, max_chunk=st.MARCH_MAX_CHUNK):
     """Each (stage, plane) that the plan's blocks write, counted, and the
     grid's (y, x) tiles checked against [0, m)^2."""
-    chunk, grid = st.march_plan(q, nz, m, ty, per_stage=per_stage)
-    assert 1 <= chunk <= st.MARCH_MAX_CHUNK
+    chunk, grid = st.march_plan(q, nz, m, ty, per_stage=per_stage, max_chunk=max_chunk)
+    assert 1 <= chunk <= max_chunk
     tx = st.MARCH_TILE[1]
     assert (grid[0] - 1) * tx < m <= grid[0] * tx
     assert (grid[1] - 1) * ty < m <= grid[1] * ty
@@ -255,7 +262,7 @@ def _covered(q, nz, m, ty, per_stage):
     least = st.MARCH_MIN_BLOCKS if per_stage else st.MIX_MIN_BLOCKS
     if grid[0] * grid[1] * lanes * nz >= least:
         assert blocks >= least, (chunk, grid)
-    if 2 * chunk <= st.MARCH_MAX_CHUNK:  # the largest chunk that leaves them
+    if 2 * chunk <= max_chunk:  # the largest chunk that leaves them
         assert grid[0] * grid[1] * lanes * -(-nz // (2 * chunk)) < least
     return seen
 
@@ -270,7 +277,8 @@ def test_k1_plan_covers_every_plane_once(where):
     if ty:
         seen = _covered(q, m, m, ty, per_stage=False)
     else:
-        seen = _covered(q, m, m, st.MARCH_TILE[0], per_stage=True)
+        seen = _covered(q, m, m, st.MARCH_TILE[0], per_stage=True,
+                        max_chunk=st.march_max_chunk("MixSplit", p))
     assert seen == {(i, z): 1 for i in range(q) for z in range(m)}
 
 
@@ -294,15 +302,149 @@ def test_the_k1_cases_take_both_tiles_and_the_route():
 
 @pytest.mark.parametrize("p", [1, 2, 3, 4])
 def test_mix_tile_routes_only_where_no_block_holds_the_rings(p):
+    """Below p = 4, K1 takes the route exactly where no tile holds its q
+    rings; at p = 4 wherever no tile lets two Mix blocks share an SM."""
+    per_sm = 2 if p == 4 else 1
     for q in range(1, st.QMAX + 1):
         ty = st.mix_tile(q, p)
-        fits = [t for t in st.MIX_TILES
-                if st.march_smem_bytes(p, t, q) <= st.BLOCK_SMEM_BYTES]
+        fits = [t for t in (st.MIX_TILES if q <= 4 else st.MIX_TILES[1:])
+                if per_sm * (st.march_smem_bytes(p, t, q) + 1024) <= st.SM_SMEM_BYTES]
         assert (ty == 0) == (not fits), (q, ty)
         if ty:
             assert st.march_smem_bytes(p, ty, q) <= st.BLOCK_SMEM_BYTES
     assert [q for q in range(1, 9) if not st.mix_tile(q, p)] == {
-        1: [], 2: [], 3: [7, 8], 4: [5, 6, 7, 8]}[p]
+        1: [], 2: [], 3: [7, 8], 4: [3, 4, 5, 6, 7, 8]}[p]
+
+
+# the z march's modes (csrc March<P, Mode>): (operand rings, per-point
+# fields, 1D diagonals); Mix's rings are its launch's stages
+MARCH_MODES = {
+    "Apply": (1, 0, False),  # K4, K9a
+    "ChebInvd": (1, 3, False),  # K3, K9c: r, x, D^-1
+    "ChebDiag": (1, 2, True),  # K3dg, K9d: r, x
+    "MassStiff": (1, 0, False),  # K5, K9b
+    "MixSplit": (2, 0, False),  # K1's route: v, u
+}
+
+
+def _mode_smem_bytes(p, mode):
+    """csrc ``March<P, Mode>::SMEM_FLOATS`` x 4 on the 16-row tile: the
+    rings, the z-pass planes E and F, the y-pass fields C and D, the
+    per-point fields of two planes, the z band rows of a chunk, the y band
+    rows ([mass, stiff][row][k], k padded to 4, where ``march_runs``) and
+    ChebDiag's 1D diagonals."""
+    rings, fields, diag = MARCH_MODES[mode]
+    ty, tx = st.MARCH_TILE
+    nb, hx, hy = 2 * p + 1, tx + 2 * p, ty + 2 * p
+    zc = st.march_max_chunk(mode, p)
+    y_rows = 2 * ty * (-(-nb // 4) * 4) if st.march_runs(mode, p) else 2 * nb * ty
+    floats = (rings * (2 * p + 2) * hy * hx + 2 * hy * hx + 2 * ty * hx
+              + 2 * fields * ty * tx + 2 * nb * zc + y_rows + (2 * zc + 2 * ty if diag else 0))
+    return 4 * floats
+
+
+def _blocks(nbytes):
+    """csrc ``March::BLOCKS``: blocks per SM that a block of ``nbytes`` of
+    shared memory allows (1 KB of the SM's reserved per block), at most 4."""
+    return min(4, st.SM_SMEM_BYTES // (nbytes + 1024))
+
+
+# the dynamic shared memory of K3dg's (ChebDiag) and the split march's
+# (MixSplit) launches at p = 1-4 as the card's profiler trace recorded them
+# (csrc March<P, Mode>::SMEM_FLOATS * 4; PERF.md section 6): at p >= 3 the y
+# band rows lie [mass, stiff][row][k], k padded to a multiple of 4, and the
+# z band rows and diagonals are a chunk's of up to 32 (p = 3) or 64 (p = 4)
+# planes
+MODE_SMEM = {("ChebDiag", 1): 54368, ("ChebDiag", 2): 70144, ("ChebDiag", 3): 90144,
+             ("ChebDiag", 4): 115328, ("MixSplit", 1): 56736, ("MixSplit", 2): 86144,
+             ("MixSplit", 3): 122656, ("MixSplit", 4): 167424}
+# and the blocks per SM that each allows (csrc March::BLOCKS)
+MODE_BLOCKS = {"ChebDiag": (4, 3, 2, 2), "MixSplit": (4, 2, 1, 1)}
+
+
+@pytest.mark.parametrize("mode, p", sorted(MODE_SMEM))
+def test_march_mode_smem_is_the_kernels_layout(mode, p):
+    nbytes = _mode_smem_bytes(p, mode)
+    assert nbytes == MODE_SMEM[mode, p]
+    assert nbytes <= st.BLOCK_SMEM_BYTES
+    assert _blocks(nbytes) == MODE_BLOCKS[mode][p - 1]
+    assert st.march_runs(mode, p) == (p >= 3)
+    assert st.march_max_chunk(mode, p) == {3: 32, 4: 64}.get(p, st.MARCH_MAX_CHUNK)
+
+
+@pytest.mark.parametrize("p", [1, 2, 3, 4])
+def test_march_blocks_per_sm(p):
+    """The blocks per SM that each mode's shared memory allows, at most 4:
+    the other modes' layouts do not change with the passes in runs."""
+    for mode in MARCH_MODES:
+        nbytes = _mode_smem_bytes(p, mode)
+        blocks = _blocks(nbytes)
+        assert 1 <= blocks <= 4
+        assert blocks * (nbytes + 1024) <= st.SM_SMEM_BYTES
+        assert blocks == 4 or (blocks + 1) * (nbytes + 1024) > st.SM_SMEM_BYTES
+        assert st.march_runs(mode, p) == (mode in ("ChebDiag", "MixSplit") and p >= 3)
+    assert _mode_smem_bytes(p, "Apply") == st.march_smem_bytes(p, st.MARCH_TILE[0], 1)
+
+
+@pytest.mark.parametrize("q, m", [(1, 255), (4, 191), (4, 255), (5, 255), (6, 255), (8, 191)])
+def test_plan_covers_the_degree_sweeps_levels(q, m):
+    """K3dg's (and the split march's) launches at Q3's 191 and Q4's 255
+    levels, in chunks of up to 32 and 64 planes: every plane of every stage
+    once, at least two blocks per SM; the wrapper hands the kernel that
+    chunk."""
+    cap = st.MARCH_RUNS_MAX_CHUNK[3 if m == 191 else 4]
+    seen = _covered(q, m, m, st.MARCH_TILE[0], per_stage=True, max_chunk=cap)
+    assert seen == {(i, z): 1 for i in range(q) for z in range(m)}
+    chunk, grid = st.march_plan(q, m, m, max_chunk=cap)
+    assert chunk == (cap if q > 1 else 32) and grid[0] * grid[1] * grid[2] >= 2 * 132
+    ops = level_ops(make_level(6, 3 if m == 191 else 4), torch.float32, "cpu")
+    assert ops.m == m
+    assert st._runs_plan(ops, q, m) == (chunk,)
+    assert st._runs_plan(ops, q, m, "MixSplit") == (chunk,)
+
+
+# the profiler's names of the march's kernels (csrc march<P, Mode, ARM>, the
+# diagnostic arm ARM 0 on every path), per LAUNCHES key
+MARCH_KERNELS = {
+    "stencil_apply": "Apply", "stencil_apply_halo": "Apply", "cheb_iter": "ChebInvd",
+    "cheb_iter_halo": "ChebInvd", "cheb_iter_dg": "ChebDiag", "cheb_iter_dg_halo": "ChebDiag",
+    "mass_stiffness_apply": "MassStiff", "mass_stiffness_apply_halo": "MassStiff",
+    "ms_mix_apply": "Mix<8, 4>", "ms_mix_apply_split": "MixSplit",
+}
+
+
+@pytest.mark.parametrize("key", sorted(MARCH_KERNELS))
+def test_device_names_find_the_march_kernels(key):
+    """``chip_smoke.DEVICE_NAMES`` selects each march kernel by the name the
+    profiler records for it, and no other mode's."""
+    def name(mode, p=4):
+        return f"void spirk::march<{p}, spirk::{mode}, 0>(spirk::MarchArgs)"
+
+    marker = chip_smoke.DEVICE_NAMES[key]
+    assert any(mk in name(MARCH_KERNELS[key]) for mk in marker)
+    others = {mode for k, mode in MARCH_KERNELS.items() if mode != MARCH_KERNELS[key]}
+    assert not any(mk in name(mode) for mode in others for mk in marker)
+
+
+# K1's form per path: Mix's tile height, or 0 for the route K2 + split march
+K1_FORMS = {"P1": 16, "P15": 8, "P16": 16, "P17": 0, "P19": 0, "P21": 0}
+
+
+@pytest.mark.parametrize("name", sorted(K1_FORMS))
+def test_k1_form_per_path(name):
+    cfg = chip_smoke.PATHS[name][1]
+    assert st.mix_tile(cfg["IRKStages"], cfg["FEDegree"]) == K1_FORMS[name]
+
+
+@pytest.mark.parametrize("p", [1, 2, 3, 4])
+def test_every_k1_form_is_held_by_a_kernel_case(p):
+    """Each form K1 takes at degree ``p`` for some q <= QMAX (Mix's tile
+    height, or 0 for the route) is held against its plain version by a 3D
+    case of ``chip_smoke.KERNEL_CASES``."""
+    live = {st.mix_tile(q, p) for q in range(1, st.QMAX + 1)}
+    held = {st.mix_tile(q, pc) for dim, q, _ref, pc, names, _timed in chip_smoke.KERNEL_CASES
+            if dim == 3 and pc == p and "ms_mix_apply" in names}
+    assert live <= held, sorted(live - held)
 
 
 # the dynamic shared memory of the Apply mode at p = 1-4 as ptxas reported it
@@ -343,7 +485,7 @@ def test_k5_launch_arguments(monkeypatch, halo):
     assert args[5:] == (q, m, *slab, st.march_plan(q, nz, m)[0], 1)
 
 
-@pytest.mark.parametrize("q, p", [(4, 1), (8, 1), (4, 4), (8, 4)])
+@pytest.mark.parametrize("q, p", [(4, 1), (8, 1), (2, 4), (3, 4), (4, 4), (8, 4)])
 def test_k1_launch_arguments(monkeypatch, q, p):
     """K1: u, out, the band tables, the (q + 1, q) table [A^-1; tau], q, m,
     the tile height, the chunk of a block for every stage, p; on the route
@@ -375,7 +517,8 @@ def test_k1_launch_arguments(monkeypatch, q, p):
     else:
         assert args[0] == k2_args[1] and args[1] == u.data_ptr()
         assert args[3:6] == (ops.mass_band.data_ptr(), ops.stiff_band.data_ptr(), 0.25)
-        assert args[6:] == (q, m, st.march_plan(q, m, m)[0], p)
+        chunk = st.march_plan(q, m, m, max_chunk=st.march_max_chunk("MixSplit", p))[0]
+        assert args[6:] == (q, m, chunk, p)
 
 
 @pytest.mark.parametrize("q", [1, 4, 5])

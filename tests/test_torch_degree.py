@@ -17,8 +17,8 @@ kernels) in their CPU forms, f64 at 3D refinement 2 (Q3: m = 11, Q4: m =
   packages (one restart per step): the restarts and the compact basis's
   RuntimeWarning as JAX's;
 * ``chip_smoke.expected_launches`` for P17's, P19's and P21's forms against
-  the kernel wrappers' calls, each counted where the card launches (K1 on
-  P19's and P21's forms as its route, K2 and ``ms_mix_apply_split``).
+  the kernel wrappers' calls, each counted where the card launches (K1 at
+  Q4 as its route, K2 and ``ms_mix_apply_split``).
 """
 
 import os
@@ -189,22 +189,24 @@ def test_form_restarts_as_jax(runs, name):
 
 def test_p19_takes_k1s_route():
     """P19's stage count is the fewest at Q4 for which no K1 block holds the
-    q rings, so its vmult takes K2 + ``ms_mix_apply_split``."""
+    q rings, so its vmult takes K2 + ``ms_mix_apply_split``; at Q4 K1 takes
+    that route wherever no tile lets two Mix blocks share an SM, so P17's
+    four stages take it too."""
     q = chip_smoke.P19_STAGES
     assert chip_smoke.PATHS["P19"][1]["IRKStages"] == q
-    assert tst.mix_tile(q, 4) == 0 and tst.mix_tile(q - 1, 4) > 0
+    assert all(tst.march_smem_bytes(4, t, q) > tst.BLOCK_SMEM_BYTES for t in tst.MIX_TILES)
+    assert any(tst.march_smem_bytes(4, t, q - 1) <= tst.BLOCK_SMEM_BYTES for t in tst.MIX_TILES)
+    q17 = chip_smoke.PATHS["P17"][1]["IRKStages"]
+    assert tst.mix_tile(q, 4) == 0 and tst.mix_tile(q17, 4) == 0
 
 
 @pytest.mark.parametrize("name", ["P17", "P19", "P21"])
 def test_chip_smoke_expected_launches(runs, name):
     """``chip_smoke.expected_launches`` against the wrappers' calls of the
-    form's kernel-structured run: P17 one K1 per vmult, P19 its route, P21
-    its route on AMG levels with a restart per step."""
+    form's kernel-structured run: P17 and P19 K1's route per vmult, P21 its
+    route on AMG levels with a restart per step."""
     r = runs(name)
     want = chip_smoke.expected_launches(r["port"])
     assert r["calls"] == want
     assert want["stencil_apply"] > 0 and want["cheb_iter"] > 0
-    if name != "P17":
-        assert want["ms_mix_apply"] == 0 and want["ms_mix_apply_split"] > 0
-    else:
-        assert want["ms_mix_apply"] > 0 and want["ms_mix_apply_split"] == 0
+    assert want["ms_mix_apply"] == 0 and want["ms_mix_apply_split"] > 0

@@ -12,8 +12,11 @@ of CPU slots, at f32, against
 Also: ``transfer_z_plan`` and ``canon_shardable`` equal to the JAX
 package's, and one V-cycle on the mesh against the JAX package's V-cycle
 (f64, round-off) with its exchange counters equal to the structure and no
-message above p (h) planes on a sharded level.  The CUDA halo kernels run
-only on the card (``chip_smoke.py``)."""
+message above p (h) planes on a sharded level (the JAX V-cycle built once
+per module and shared by both arms).  The CUDA halo kernels run only on
+the card (``chip_smoke.py``)."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -195,6 +198,21 @@ def test_canon_shardable_matches_jax(p, nsp):
     assert tshard.z_partition(15, 2) == [(0, 8), (8, 15)]
 
 
+@functools.cache
+def _jax_vcycle_r5():
+    """Refinement 5 in the JAX package, once per module: its GMG hierarchy
+    (and the port's copy), its state at the IRK stage diagonal D, a
+    right-hand side (seed 6) and its batched V-cycle."""
+    space = make_space(3, 1, 5)
+    jg = jgmg.build_gmg_data(space, jnp.float64, with_dense=False)
+    d = irk_tables(Q).D
+    jp = jgmg.gmg_reinit(jg, jnp.asarray(d), TAU, 3, "stencil", batch=True)
+    r = np.random.default_rng(6).standard_normal((Q,) + space.shape)
+    want = np.asarray(jgmg.vcycle(jg, jp, jnp.asarray(d), TAU, jnp.asarray(r), 3, "stencil",
+                                  batch=True))
+    return jg, d, jp, r, want
+
+
 @pytest.mark.parametrize("kernels", [True, False])
 def test_mesh_vcycle_matches_jax_and_counts_its_exchanges(kernels):
     """Refinement 5 on a (4, 2) mesh: the 31 level is sharded, the 15 level
@@ -202,8 +220,7 @@ def test_mesh_vcycle_matches_jax_and_counts_its_exchanges(kernels):
     each stage row's first slot.  Against the JAX package's V-cycle with
     its own state (f64, rtol 1e-10: the sharded transfers sum in another
     order), and against the port's unsharded V-cycle."""
-    space = make_space(3, 1, 5)
-    jg = jgmg.build_gmg_data(space, jnp.float64, with_dense=False)
+    jg, d, jp, r, want = _jax_vcycle_r5()
     tg = gmg_data_from_numpy(
         [tuple(np.asarray(x) for x in (o.mass_band, o.stiff_band, o.mass_diag, o.stiff_diag))
          for o in jg.level_ops],
@@ -211,15 +228,10 @@ def test_mesh_vcycle_matches_jax_and_counts_its_exchanges(kernels):
         np.asarray(jg.coarse_mass),
         np.asarray(jg.coarse_stiff),
     )
-    d = irk_tables(Q).D
-    jp = jgmg.gmg_reinit(jg, jnp.asarray(d), TAU, 3, "stencil", batch=True)
     mesh = tmake_mesh(4, devices=["cpu"] * 8)
     state = [[np.asarray(x) for x in f] for f in (jp.inv_diags, jp.thetas, jp.deltas)]
     mp = mesh_prec_from_numpy(tg, *state, np.asarray(jp.coarse_inv), d, 3, mesh)
     assert [lv is not None for lv in mp.levels] == [False, True, True]
-    r = np.random.default_rng(6).standard_normal((Q,) + space.shape)
-    want = np.asarray(jgmg.vcycle(jg, jp, jnp.asarray(d), TAU, jnp.asarray(r), 3, "stencil",
-                                  batch=True))
     tst.reset_launches()
     tshard.reset_exchange()
     a = torch.as_tensor(d)

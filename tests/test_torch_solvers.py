@@ -1,6 +1,10 @@
 """The port's solvers (Krylov, Chebyshev, GMG) against the JAX package's
 at f64 on the same numpy inputs: iteration counts exactly equal, iterates
-to round-off (rtol 1e-10)."""
+to round-off (rtol 1e-10).  The JAX package's GMG hierarchies, their
+states and V-cycles are built once per module (``functools.cache``) and
+shared by the tests that take the same inputs."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -157,6 +161,7 @@ def test_default_start_is_jax_uniform(dim, dtype):
         np.testing.assert_array_equal(got.view(np.uint8), want.view(np.uint8))
 
 
+@functools.cache
 def _gmg_pair(ref, dim=3):
     space = make_space(dim, 1, ref)
     jg = jgmg.build_gmg_data(space, jnp.float64, with_dense=False)
@@ -178,8 +183,7 @@ def test_build_gmg_data_and_reinit_match(ref):
     assert own.level_ops[0].m == 7  # COARSE_SIZE_LIMIT truncation: 7^3 <= 1024 < 15^3
     _close(own.coarse_mass, jg.coarse_mass, rtol=1e-14)
     _close(own.coarse_stiff, jg.coarse_stiff, rtol=1e-14)
-    d = irk_tables(Q).D
-    jp = jgmg.gmg_reinit(jg, jnp.asarray(d), 0.1, 3, "stencil", batch=True)
+    d, jp, _tp = _prec_pair(ref, 0.1, 3)
     tp = tgmg.gmg_reinit(own, torch.as_tensor(d), 0.1, 3)
     for name in ("inv_diags", "thetas", "deltas"):
         for t, j in zip(getattr(tp, name), getattr(jp, name)):
@@ -190,27 +194,18 @@ def test_build_gmg_data_and_reinit_match(ref):
 @pytest.mark.parametrize("ref", [4, 5])
 @pytest.mark.parametrize("kernels", [True, False])
 def test_vcycle_matches(ref, kernels):
-    space, jg, tg = _gmg_pair(ref)
-    d = irk_tables(Q).D
+    _space, _jg, tg = _gmg_pair(ref)
     tau = 0.1
-    jp = jgmg.gmg_reinit(jg, jnp.asarray(d), tau, 3, "stencil", batch=True)
-    tp = gmg_prec_from_numpy(
-        [np.asarray(x) for x in jp.inv_diags],
-        [np.asarray(x) for x in jp.thetas],
-        [np.asarray(x) for x in jp.deltas],
-        np.asarray(jp.coarse_inv),
-    )
-    r = np.random.default_rng(6).standard_normal((Q,) + space.shape)
-    want = jax.jit(
-        lambda rr: jgmg.vcycle(jg, jp, jnp.asarray(d), tau, rr, 3, "stencil", batch=True)
-    )(jnp.asarray(r))
+    d, _jp, tp = _prec_pair(ref, tau, 3)
+    r, want = _jax_vcycle(ref, tau)
     got = tgmg.vcycle(tg, tp, torch.as_tensor(d), tau, torch.as_tensor(r), 3, kernels=kernels)
     _close(got, want)
 
 
-def _prec_pair(jg, tau, dim):
-    d = irk_tables(Q).D
-    jp = jgmg.gmg_reinit(jg, jnp.asarray(d), tau, dim, "stencil", batch=True)
+def _prec_pair(ref, tau, dim):
+    """The IRK stage diagonal D, JAX's GMG state of ``_gmg_pair(ref, dim)``
+    (built once per module) and the port's copy of it."""
+    d, jp = _jax_prec(ref, tau, dim)
     tp = gmg_prec_from_numpy(
         [np.asarray(x) for x in jp.inv_diags],
         [np.asarray(x) for x in jp.thetas],
@@ -220,18 +215,58 @@ def _prec_pair(jg, tau, dim):
     return d, jp, tp
 
 
+@functools.cache
+def _jax_prec(ref, tau, dim):
+    d = irk_tables(Q).D
+    jg = _gmg_pair(ref, dim)[1]
+    return d, jgmg.gmg_reinit(jg, jnp.asarray(d), tau, dim, "stencil", batch=True)
+
+
+@functools.cache
+def _jax_vcycle(ref, tau):
+    """A 3D right-hand side (seed 6) and JAX's batched V-cycle of it."""
+    space, jg, _tg = _gmg_pair(ref)
+    d, jp = _jax_prec(ref, tau, 3)
+    r = np.random.default_rng(6).standard_normal((Q,) + space.shape)
+    want = jax.jit(
+        lambda rr: jgmg.vcycle(jg, jp, jnp.asarray(d), tau, rr, 3, "stencil", batch=True)
+    )(jnp.asarray(r))
+    return r, np.asarray(want)
+
+
+@functools.cache
+def _jax_vcycle_2d(tau):
+    """A 2D right-hand side (seed 7) on refinement 6 and JAX's batched
+    V-cycle of it."""
+    space, jg, _tg = _gmg_pair(6, dim=2)
+    d, jp = _jax_prec(6, tau, 2)
+    r = np.random.default_rng(7).standard_normal((Q,) + space.shape)
+    want = jgmg.vcycle(jg, jp, jnp.asarray(d), tau, jnp.asarray(r), 2, "stencil", batch=True)
+    return r, np.asarray(want)
+
+
 @pytest.mark.parametrize("kernels", [True, False])
 def test_vcycle_2d_matches(kernels):
     """2D: the Chebyshev step is the elementwise chain over the apply
     (K4-2D with kernels), as the JAX package smooths 2D."""
-    space, jg, tg = _gmg_pair(6, dim=2)
+    _space, _jg, tg = _gmg_pair(6, dim=2)
     assert len(tg.level_ops) == 2  # 63^2 smoothed, 31^2 solved densely
     tau = 0.1
-    d, jp, tp = _prec_pair(jg, tau, 2)
-    r = np.random.default_rng(7).standard_normal((Q,) + space.shape)
-    want = jgmg.vcycle(jg, jp, jnp.asarray(d), tau, jnp.asarray(r), 2, "stencil", batch=True)
+    d, _jp, tp = _prec_pair(6, tau, 2)
+    r, want = _jax_vcycle_2d(tau)
     got = tgmg.vcycle(tg, tp, torch.as_tensor(d), tau, torch.as_tensor(r), 2, kernels=kernels)
     _close(got, want)
+
+
+@functools.cache
+def _jax_stage_vcycle(tau, i):
+    """A one-stage right-hand side (seed 8) on refinement 4 and JAX's
+    non-batched V-cycle of it with stage ``i``'s state."""
+    space, jg, _tg = _gmg_pair(4)
+    d, jp = _jax_prec(4, tau, 3)
+    r = np.random.default_rng(8).standard_normal(space.shape)
+    jpi = jax.tree_util.tree_map(lambda x: x[i], jp)
+    return r, np.asarray(jgmg.vcycle(jg, jpi, d[i], tau, jnp.asarray(r), 3, "stencil"))
 
 
 @pytest.mark.parametrize("kernels", [True, False])
@@ -239,13 +274,11 @@ def test_stage_vcycle_matches(kernels):
     """One stage of the batched state (``stage_prec``, leading axis 1)
     against JAX's non-batched V-cycle on ``tree_map(x[i])`` of it — the
     sequential ``irk``'s per-stage preconditioner."""
-    space, jg, tg = _gmg_pair(4)
+    _space, _jg, tg = _gmg_pair(4)
     tau = 0.1
-    d, jp, tp = _prec_pair(jg, tau, 3)
-    r = np.random.default_rng(8).standard_normal(space.shape)
+    d, _jp, tp = _prec_pair(4, tau, 3)
     i = 2
-    jpi = jax.tree_util.tree_map(lambda x: x[i], jp)
-    want = jgmg.vcycle(jg, jpi, d[i], tau, jnp.asarray(r), 3, "stencil")
+    r, want = _jax_stage_vcycle(tau, i)
     tpi = tgmg.stage_prec(tp, i)
     assert all(x.shape[0] == 1 for x in tpi.inv_diags + tpi.thetas + (tpi.coarse_inv,))
     got = tgmg.vcycle(
