@@ -116,7 +116,8 @@ Phases; any failure exits non-zero:
    3 and 4 (no library call) K3dg at P16's and P17's finest levels, K3 and
    K4 at P20's, K1 at P17's (its route: the device time of the whole
    call), K2 and ms_mix_apply_split at P19's, K9c on P18's first slab and
-   K3dg at P19's: device time per launch from
+   K3dg at P19's, K3 at P16's 95 and P17's 127 levels: device time per
+   launch from
    ``torch.profiler`` (only sessions in which every timed launch left its
    record, ``profiler_session``), time per call from CUDA events in turns (kernel,
    library, library, kernel), L2-warm and L2-cold; printed and kept in the
@@ -124,11 +125,11 @@ Phases; any failure exits non-zero:
    but a turn that reads below the DRAM bound (``sub_bound``) is printed as
    dropped and left out, and a case whose every turn drops fails; the
    least of the kept turns is printed with their median;
-3c. K3dg's diagnostic arms (``measure_arms``, ARM_CASES: P4's 255 level at
-   p = 1, P16's 191 and P17's 255 levels): the kernel, its passes alone on
-   resident planes and its copies alone, device time L2-cold; numbers,
-   printed and kept in a line of their own (``k3dg_arms``) before the
-   kernels line, not gates;
+3c. K3dg's and K3's diagnostic arms (``measure_arms``, ARM_CASES: K3dg at
+   P4's 255 level at p = 1, P16's 191 and P17's 255 levels, K3 at P20's and
+   P17's 127 levels): the kernel, its passes alone on resident planes and
+   its copies alone, device time L2-cold; numbers, printed and kept in a
+   line of their own (``cheb_arms``) before the kernels line, not gates;
 4. per path, the kernel arm: the launch counts (all set to 0 just before
    the run, read just after) must equal what the solve structure implies
    and include every kernel of the path (REQUIRED: K3dg on P16, P17, P19
@@ -566,6 +567,9 @@ MEASURE_CASES = [
     ("cheb_iter_halo", 3, 1, 1, 5, 4),
     # K3dg at P19's 255 level (P19_STAGES lanes, Q4)
     ("cheb_iter_dg", 3, P19_STAGES, P19_STAGES, 6, 4),
+    # K3 at P16's 95 level (q=4, Q3) and P17's 127 level (q=4, Q4)
+    ("cheb_iter", 3, 4, 4, 5, 3),
+    ("cheb_iter", 3, 4, 4, 5, 4),
 ]
 # the device kernels of a LAUNCHES key, by name in the profiler (default the
 # key itself): the z march of each mode and its pair form (csrc/march.cuh),
@@ -1514,37 +1518,47 @@ def measure_kernels(device, cases=None) -> list[dict]:
     return results
 
 
-# K3dg's diagnostic arms (``measure_arms``): (q, refinement, degree) — P4's
-# 255 level at p = 1 (six lanes), P16's 191 and P17's 255 levels (q=4)
-ARM_CASES = [(6, 8, 1), (4, 6, 3), (4, 6, 4)]
+# the diagnostic arms (``measure_arms``): (LAUNCHES key, q, refinement,
+# degree) — K3dg at P4's 255 level at p = 1 (six lanes), P16's 191 and P17's
+# 255 levels (q=4); K3 at P20's 127 level (six lanes, Q4) and P17's (q=4)
+ARM_CASES = [("cheb_iter_dg", 6, 8, 1), ("cheb_iter_dg", 4, 6, 3), ("cheb_iter_dg", 4, 6, 4),
+             ("cheb_iter", 6, 5, 4), ("cheb_iter", 4, 5, 4)]
 ARMS = {"kernel": 0, "passes only": 1, "copies only": 2}
+# per key: the kernel's name, its arms' entry point (csrc/cheb_iter.cu) and
+# its march mode
+ARM_ENTRIES = {"cheb_iter": ("K3", "spirk_cheb_iter_arm", "ChebInvd"),
+               "cheb_iter_dg": ("K3dg", "spirk_cheb_iter_dg_arm", "ChebDiag")}
 
 
-def cheb_dg_arm(ops, a, b, c1, c2, d, r, x, arm: int):
-    """K3dg's march in one of its diagnostic arms (csrc/cheb_iter.cu::
-    spirk_cheb_iter_dg_arm; 0: the kernel itself, through its wrapper):
-    1 the passes and the update on resident planes, no copy and no store;
-    2 the copies and stores alone (r' = r, d' = d, x' = x)."""
+def cheb_arm(key: str, ops, a, b, c1, c2, fields, arm: int):
+    """K3's (``key`` "cheb_iter": ``fields`` d, r, x, D^-1) or K3dg's
+    ("cheb_iter_dg": d, r, x) march in one of its diagnostic arms
+    (csrc/cheb_iter.cu::spirk_cheb_iter_arm, spirk_cheb_iter_dg_arm; 0: the
+    kernel itself, through its wrapper): 1 the passes and the update on
+    resident planes, no copy and no store; 2 the copies and stores alone
+    (r' = r, d' = d, x' = x); on the wrapper's plan."""
     from dealii_spirk_tpu_torch.ops.cuda import stencil as st
 
     if arm == 0:
-        return st.cheb_iter_dg(ops, a, b, c1, c2, d, r, x)
+        return getattr(st, key)(ops, a, b, c1, c2, *fields)
+    d = fields[0]
     q, m = d.shape[0], ops.m
     outs = [torch.empty_like(d) for _ in range(3)]
     tabs = [st._stage_coefs(t, q, d.device) for t in (a, c1, c2)]
+    ins = fields if key == "cheb_iter" else (*fields, ops.mass_diag, ops.stiff_diag)
+    _name, entry, mode = ARM_ENTRIES[key]
     st._launch_raw(
-        "spirk_cheb_iter_dg_arm", d.device,
-        *(t.data_ptr() for t in (d, r, x, ops.mass_diag, ops.stiff_diag, *outs,
-                                 ops.mass_band, ops.stiff_band, tabs[0])),
-        float(b), tabs[1].data_ptr(), tabs[2].data_ptr(), q, m, *st._runs_plan(ops, q, m),
+        entry, d.device,
+        *(t.data_ptr() for t in (*ins, *outs, ops.mass_band, ops.stiff_band, tabs[0])),
+        float(b), tabs[1].data_ptr(), tabs[2].data_ptr(), q, m, *st._runs_plan(ops, q, m, mode),
         ops.p, arm)
     return tuple(outs)
 
 
-def measure_arms(device) -> list[dict]:
-    """K3dg at ARM_CASES in each of ARMS, in TURNS turns of every arm in
-    order: device time per launch from ``torch.profiler`` and time per call
-    from CUDA events, L2-cold (rotating input sets), the least over the
+def measure_arms(device, keys=tuple(ARM_ENTRIES)) -> list[dict]:
+    """The ARM_CASES of ``keys`` in each of ARMS, in TURNS turns of every arm
+    in order: device time per launch from ``torch.profiler`` and time per
+    call from CUDA events, L2-cold (rotating input sets), the least over the
     turns.  The passes-only arm is what the shared-memory passes take with
     no DRAM traffic, the copies-only arm what the memory pipeline takes
     with no pass; numbers, not gates."""
@@ -1552,32 +1566,36 @@ def measure_arms(device) -> list[dict]:
     from dealii_spirk_tpu_torch.ops.mass_laplace import level_ops
 
     out = []
-    for q, ref, p in ARM_CASES:
+    for key, q, ref, p in ARM_CASES:
+        if key not in keys:
+            continue
         ops = level_ops(make_level(ref, p), torch.float32, device)
         m = ops.m
         gen = device_generator(device, 7 * ref + p)
         a, c1, c2 = (torch.linspace(lo, lo + 1, q, device=device) for lo in (0.5, 0.2, 0.1))
-        n_sets = max(2, -(-2 * L2_CACHE_BYTES // (4 * 6 * q * m**3)))
-        sets = [tuple(uniform_field((q, m, m, m), -1.0, 1.0, device, gen) for _ in range(3))
-                for _ in range(n_sets)]
-        bnd = bound("cheb_iter_dg", q, q, m**3, p, 3)
-        row = {"at": f"3D p={p} m={m} q={q}", "bound_ms": bnd[0]}
+        n_fields = PASSES[key] - 3  # d, r, x and K3's D^-1 (in 0.5 .. 1.5)
+        n_sets = max(2, -(-2 * L2_CACHE_BYTES // (4 * PASSES[key] * q * m**3)))
+        sets = [tuple(uniform_field((q, m, m, m), -1.0, 1.0, device, gen).abs_().add_(0.5)
+                      if i == 3 else uniform_field((q, m, m, m), -1.0, 1.0, device, gen)
+                      for i in range(n_fields)) for _ in range(n_sets)]
+        bnd = bound(key, q, q, m**3, p, 3)
+        row = {"name": ARM_ENTRIES[key][0], "at": f"3D p={p} m={m} q={q}", "bound_ms": bnd[0]}
         for _turn in range(TURNS):
             for name, arm in ARMS.items():
-                call = _rotating(lambda d, r, x, arm=arm: cheb_dg_arm(
-                    ops, a, 0.1, c1, c2, d, r, x, arm), sets)
+                call = _rotating(lambda *f, arm=arm: cheb_arm(key, ops, a, 0.1, c1, c2, f, arm),
+                                 sets)
                 ms = timed_calls(call)[0]
-                dev = device_ms(call, DEVICE_NAMES["cheb_iter_dg"])[0]
+                dev = device_ms(call, DEVICE_NAMES[key])[0]
                 best = row.setdefault(name, {"cold_ms": ms, "cold_device_ms": dev})
                 best["cold_ms"] = min(best["cold_ms"], ms)
                 if dev is not None and (best["cold_device_ms"] is None
                                         or dev < best["cold_device_ms"]):
                     best["cold_device_ms"] = dev
         fmt = lambda v: "not seen" if v is None else f"{v:.4f}"  # noqa: E731
-        say(f"arms K3dg {row['at']}, L2-cold, least of {TURNS} turns (device per launch / per "
-            f"call, ms): " + "; ".join(f"{name} {fmt(row[name]['cold_device_ms'])} / "
-                                      f"{row[name]['cold_ms']:.4f}" for name in ARMS)
-            + f"; DRAM bound {bnd[0]:.4f}")
+        say(f"arms {row['name']} {row['at']}, L2-cold, least of {TURNS} turns (device per "
+            f"launch / per call, ms): " + "; ".join(
+                f"{name} {fmt(row[name]['cold_device_ms'])} / {row[name]['cold_ms']:.4f}"
+                for name in ARMS) + f"; DRAM bound {bnd[0]:.4f}")
         out.append(row)
         del sets
         torch.cuda.empty_cache()
@@ -2430,7 +2448,7 @@ def main() -> int:
     measured = measure_kernels(device)
     arms = measure_arms(device)
     launches = run_paths(device, smi)
-    say(json.dumps({"k3dg_arms": arms}))
+    say(json.dumps({"cheb_arms": arms}))
     say(json.dumps(kernel_summary(report, launches, measured)))
     say(json.dumps({
         "ok": True,

@@ -109,23 +109,42 @@ extern "C" int spirk_cheb_iter_dg_halo(const float* d, const float* r, const flo
                                             spirk::ZSlab{nzl, p, z_off}, chunk, p, stream);
 }
 
-// K3dg's diagnostic arms (march.cuh ARM; not a kernel of any path, and no
-// LAUNCHES count): arm 1 the passes alone on resident planes, arm 2 the
-// copies and stores alone; the arguments of spirk_cheb_iter_dg, then arm
+// K3's and K3dg's diagnostic arms (march.cuh ARM; not a kernel of any path,
+// and no LAUNCHES count): arm 1 the passes alone on resident planes, arm 2
+// the copies and stores alone; the arguments of spirk_cheb_iter (K3) or
+// spirk_cheb_iter_dg (K3dg), then arm
+template <class Mode>
+int cheb_arm(const float* d, const float* r, const float* x, const float* invd,
+             const float* mdiag, const float* kdiag, float* r_out, float* d_out, float* x_out,
+             const float* mband, const float* kband, const float* a, float b, const float* c1,
+             const float* c2, int q, int m, int chunk, int p, int arm, void* stream) {
+  const spirk::ZSlab zs = spirk::whole_field(m);
+  if (arm == spirk::PASSES)
+    return spirk::cheb_entry<Mode, spirk::PASSES>(d, r, x, invd, mdiag, kdiag, r_out, d_out,
+                                                  x_out, mband, kband, a, b, c1, c2, q, m, zs,
+                                                  chunk, p, stream);
+  if (arm == spirk::COPIES)
+    return spirk::cheb_entry<Mode, spirk::COPIES>(d, r, x, invd, mdiag, kdiag, r_out, d_out,
+                                                  x_out, mband, kband, a, b, c1, c2, q, m, zs,
+                                                  chunk, p, stream);
+  return cudaErrorInvalidValue;
+}
+
+extern "C" int spirk_cheb_iter_arm(const float* d, const float* r, const float* x,
+                                   const float* invd, float* r_out, float* d_out, float* x_out,
+                                   const float* mband, const float* kband, const float* a,
+                                   float b, const float* c1, const float* c2, int q, int m,
+                                   int chunk, int p, int arm, void* stream) {
+  return cheb_arm<spirk::ChebInvd>(d, r, x, invd, nullptr, nullptr, r_out, d_out, x_out, mband,
+                                   kband, a, b, c1, c2, q, m, chunk, p, arm, stream);
+}
+
 extern "C" int spirk_cheb_iter_dg_arm(const float* d, const float* r, const float* x,
                                       const float* mdiag, const float* kdiag, float* r_out,
                                       float* d_out, float* x_out, const float* mband,
                                       const float* kband, const float* a, float b,
                                       const float* c1, const float* c2, int q, int m,
                                       int chunk, int p, int arm, void* stream) {
-  const spirk::ZSlab zs = spirk::whole_field(m);
-  if (arm == spirk::PASSES)
-    return spirk::cheb_entry<spirk::ChebDiag, spirk::PASSES>(
-        d, r, x, nullptr, mdiag, kdiag, r_out, d_out, x_out, mband, kband, a, b, c1, c2, q, m,
-        zs, chunk, p, stream);
-  if (arm == spirk::COPIES)
-    return spirk::cheb_entry<spirk::ChebDiag, spirk::COPIES>(
-        d, r, x, nullptr, mdiag, kdiag, r_out, d_out, x_out, mband, kband, a, b, c1, c2, q, m,
-        zs, chunk, p, stream);
-  return cudaErrorInvalidValue;
+  return cheb_arm<spirk::ChebDiag>(d, r, x, nullptr, mdiag, kdiag, r_out, d_out, x_out, mband,
+                                   kband, a, b, c1, c2, q, m, chunk, p, arm, stream);
 }

@@ -22,7 +22,8 @@
 // output tile (Mix: every stage's, TY x 64) and marches over a chunk of z
 // planes (at most March::ZC; the wrapper picks the chunk per launch so that
 // a launch has at least two blocks per SM where the field allows,
-// ops/cuda/stencil.py::march_plan).  It keeps a ring of 2p + 2 haloed
+// ops/cuda/stencil.py::march_plan; K3 and K9c at p >= 3 so that the busiest
+// SM has the least work, cheb_invd_chunk).  It keeps a ring of 2p + 2 haloed
 // planes of each operand in shared memory (MixSplit two, Mix one per
 // stage): the 2p + 1 that the z pass of the current plane reads and the
 // next one, which cp.async copies in while the block computes the current
@@ -45,15 +46,20 @@
 // shared memory, so above p = 1 the passes set as much of the time as the
 // copies: at P17's shape (p = 4) K3dg's passes alone took 0.70 ms and its
 // copies alone 0.74, against 1.11 for the kernel and a DRAM bound of 0.48
-// (PERF.md).  So K3dg, K9d and MixSplit at p >= 3 (March::RUNS) take the z
-// pass over groups of 4 adjacent points in 16-byte loads (on the H100
-// 2.7-3.6% off each at p = 4 against z_sums per point, PERF.md), the y
+// (PERF.md).  So K3, K3dg, K9c, K9d and MixSplit at p >= 3 (March::RUNS)
+// take the z pass over groups of 4 adjacent points in 16-byte loads (on the
+// H100 2.7-3.6% off each at p = 4 against z_sums per point, PERF.md), the y
 // pass in runs of 4 tile rows of a column summed from the 4 + 2p entries
 // read once (y_run), each thread one run (the last 2p columns a row each),
 // and chunks of up to 32 (p = 3) or 64 (p = 4) planes.  Every point keeps its
-// taps, weights and order of sums, so these modes keep their bytes.  The y
-// and x passes sum the stiffness
-// taps apart from the mass taps and add the two sums, the plain version's
+// taps, weights and order of sums, so these modes keep their bytes.
+// ChebInvd copies three fields per point, which at p = 4 with two planes of
+// them cost it the second resident block; in runs it keeps the fields of
+// one plane (March::RX1), copied in by each thread into its own slots once
+// its x pass of the plane before has read them, and waited for only before
+// the x pass that reads them, so the copy hides behind the z and y passes
+// (110,592 B at p = 4: two blocks per SM).  The y and x passes sum the
+// stiffness taps apart from the mass taps and add the two sums, the plain version's
 // order: one accumulator for both (the earlier tile kernels) gave K3dg's r'
 // on a smooth field at P4's 255 level a mean error against f64 ten times the
 // f32 plain version's (chip_smoke.py::smooth_bias), the rounding K5-2D had
@@ -109,21 +115,26 @@ struct March {
   static constexpr int PLANE = HY * HX;  // one haloed plane of an operand
   static constexpr bool DIAG = std::is_same<Mode, ChebDiag>::value;
   static constexpr bool MIX = Mode::RINGS == 0;
-  // K3dg, K9d and K1's split march at p >= 3 (RUNS): the z pass over groups
-  // of 4 adjacent points in 16-byte loads and stores (z_pass), the y pass in
-  // runs (y_run: a thread sums RY tile rows of one column from registers,
-  // its rows' weights in 16-byte loads of [mass, stiff][row][k] rows of NBP
-  // = NB rounded up to 4 floats; the last 2p columns a row per thread)
-  // and chunks of up to ZC = 2 MZC planes at p = 3, 4 MZC at p = 4 (the z
-  // halo of 2p planes is read once per chunk; stencil.py
+  // K3, K3dg, K9c, K9d and K1's split march at p >= 3 (RUNS): the z pass
+  // over groups of 4 adjacent points in 16-byte loads and stores (z_pass),
+  // the y pass in runs (y_run: a thread sums RY tile rows of one column from
+  // registers, its rows' weights in 16-byte loads of [mass, stiff][row][k]
+  // rows of NBP = NB rounded up to 4 floats; the last 2p columns a row per
+  // thread) and chunks of up to ZC = 2 MZC planes at p = 3, 4 MZC at p = 4
+  // (the z halo of 2p planes is read once per chunk; stencil.py
   // MARCH_RUNS_MAX_CHUNK); the other modes and degrees keep z_sums and
   // y_sums per point over [mass, stiff][k][row] and chunks of MZC
-  static constexpr bool RUNS = (DIAG || std::is_same<Mode, MixSplit>::value) && P >= 3;
+  static constexpr bool INVD = std::is_same<Mode, ChebInvd>::value;
+  static constexpr bool RUNS = (DIAG || INVD || std::is_same<Mode, MixSplit>::value) && P >= 3;
+  // ChebInvd in runs: the per-point fields of one plane, not two (the
+  // header; stencil.py::CHEB_INVD_BLOCKS)
+  static constexpr bool RX1 = INVD && RUNS;
   static constexpr int RING = 2 * P + 2;  // planes z - p .. z + p and the next one
   static constexpr int LOADS = (PLANE + NTHREADS - 1) / NTHREADS;  // a plane's copies per thread
   static constexpr int YP = TY * HX;      // one field after the y pass
   static constexpr int MOUT = TY * MX / NTHREADS;  // output points of a thread per plane
-  static constexpr int RX = 2 * Mode::FIELDS * MOUT * NTHREADS;  // the fields of two planes
+  static constexpr int RXP = Mode::FIELDS * MOUT * NTHREADS;  // the fields of one plane
+  static constexpr int RX = (RX1 ? 1 : 2) * RXP;
   static constexpr int ZC = RUNS ? (P >= 4 ? 4 : 2) * MZC : MZC;  // most z planes a block marches
   static constexpr int ZW = 2 * NB * ZC;  // z band rows of a chunk
   static constexpr int DG = DIAG ? 2 * ZC + 2 * TY : 0;  // 1D diagonals at the chunk's z, tile's y
@@ -191,6 +202,11 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// every group of this thread's copies in but the newest
+__device__ __forceinline__ void cp_async_wait_prior() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
 // The pieces every mode and the pair march share: a haloed plane's copies,
@@ -360,7 +376,7 @@ march(const MarchArgs g) {
   float* F = E + PLANE;
   float* C = F + PLANE;                  // [TY][HX]
   float* D = C + G::YP;
-  float* rx = D + G::YP;                 // [plane & 1][field][point][thread]
+  float* rx = D + G::YP;                 // [plane & 1 (RX1: 0)][field][point][thread]
   float* zw = rx + G::RX;                // [mass, stiff][k][chunk plane]
   float* yw = zw + G::ZW;                // [mass, stiff][k][tile row]
   float* zdg = yw + G::YW;               // ChebDiag: [mass, stiff][chunk plane]
@@ -408,10 +424,11 @@ march(const MarchArgs g) {
                                   operand(rg) + (zin ? gz : 0) * mm, goff, zin);
   };
   // the per-point fields at this thread's points of plane j into buffer j & 1
+  // (RX1: the one buffer)
   auto load_fields = [&](int j) {
     if constexpr (NF > 0 && !RESIDENT) {
       const long long base = oq + (long long)(z0 + j) * mm;
-      float* dst = rx + (j & 1) * NF * MOUT * NTHREADS;
+      float* dst = rx + (G::RX1 ? 0 : (j & 1) * G::RXP);
 #pragma unroll
       for (int s = 0; s < MOUT; ++s) {
         const int gy = y0 + orow + s * MROWS;
@@ -429,8 +446,10 @@ march(const MarchArgs g) {
     for (int i = tid; i < G::RX; i += NTHREADS) rx[i] = 0.f;
   }
   // prologue: planes -p .. p of the operands and the fields of plane 0 in
-  // flight, then the band rows (and diagonals) of the chunk and tile
+  // flight (RX1: in a group of their own, the newest), then the band rows
+  // (and diagonals) of the chunk and tile
   for (int j = -P; j <= P; ++j) load_d(j);
+  if constexpr (G::RX1) cp_async_commit();
   load_fields(0);
   cp_async_commit();
   load_band_rows<G::ZC>(zw, g.mband, g.kband, NB, m, zs.z_off + z0);
@@ -555,7 +574,7 @@ march(const MarchArgs g) {
   // of input stage j)
   auto x_pass = [&](int k, int j) {
     const float* centre = ring + ((k + P) % RING) * PLANE + P * HX + P;
-    const float* fk = rx + (k & 1) * NF * MOUT * NTHREADS + tid;
+    const float* fk = rx + (G::RX1 ? 0 : (k & 1) * G::RXP) + tid;
     const long long base = oq + (long long)(z0 + k) * mm;
     float cm[NQ];  // Mix: A^-1[i, j] for every output stage i
     float tj = 0.f;             // Mix: tau_j
@@ -619,12 +638,20 @@ march(const MarchArgs g) {
     }
   };
 
+  // RX1: the groups of a thread are, oldest first, the operand plane k + p
+  // (issued at plane k - 1), the fields of plane k (issued after the x pass
+  // of plane k - 1), the operand plane k + 1 + p; so the operand planes wait
+  // at the barrier and a thread's own fields only before its x pass
   for (int k = 0; k < nzc; ++k) {
-    cp_async_wait_all();
+    if constexpr (G::RX1) {
+      cp_async_wait_prior();
+    } else {
+      cp_async_wait_all();
+    }
     __syncthreads();  // plane k's copies are in; every thread left plane k - 1
     if (k + 1 < nzc) {
       load_d(k + 1 + P);
-      load_fields(k + 1);
+      if constexpr (!G::RX1) load_fields(k + 1);
     }
     cp_async_commit();
     if constexpr (MIX) {
@@ -644,7 +671,12 @@ march(const MarchArgs g) {
       __syncthreads();
       if constexpr (ARM != COPIES) y_pass();
       __syncthreads();
+      if constexpr (G::RX1) cp_async_wait_prior();  // this thread's fields of plane k
       x_pass(k, 0);
+      if constexpr (G::RX1) {  // the fields of plane k + 1 into the slots just read
+        if (k + 1 < nzc) load_fields(k + 1);
+        cp_async_commit();
+      }
     }
   }
 }

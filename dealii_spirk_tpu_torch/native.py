@@ -1,20 +1,37 @@
 """ctypes bindings for the native C++ setup core (``native/fem_core.cc``).
 
-Loads ``native/libspirk_fem.so``; if absent, attempts a one-shot ``make``
-build.  Every entry point has a pure-numpy fallback in ``fem/`` /
-``tables.py`` — callers use :func:`core` and treat ``None`` as "fall back".
+The port builds its own copy of the library from that source, at first
+use, into ``build/dealii_spirk_tpu_torch/`` at the repository root (the
+kernels' build directory, git-ignored), under a name keyed by a hash of
+the source and the compiler flags.  The compiler writes a temporary file
+in that directory, which ``os.replace`` moves into place, all under an
+exclusive ``fcntl.flock`` on a lock file there: the first process builds,
+the others wait and load the finished file, so no process loads a
+partly written library or races another's build.  Every entry point has
+a pure-numpy fallback in ``tables.py``; callers use :func:`core` and
+treat ``None`` as "fall back", which it warns about once, naming the
+error.  The two routes do not give the same complex eigenvectors (each
+normalises and phases them its own way), so a run's tables depend on
+the route.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import hashlib
 import os
+import shutil
 import subprocess
+import tempfile
+import warnings
+from pathlib import Path
 
 import numpy as np
 
-_NATIVE_DIR = os.path.join(os.path.dirname(__file__), "..", "native")
-_SO_PATH = os.path.join(_NATIVE_DIR, "libspirk_fem.so")
+SOURCE = Path(__file__).resolve().parents[1] / "native" / "fem_core.cc"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "dealii_spirk_tpu_torch"
+CXX_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-shared")
 
 _DP = ctypes.POINTER(ctypes.c_double)
 
@@ -159,24 +176,53 @@ class NativeCore:
         )
 
 
+def library_path() -> Path:
+    """The library built from SOURCE with CXX_FLAGS, in BUILD_DIR."""
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    h.update(SOURCE.read_bytes())
+    return BUILD_DIR / f"libspirk_fem_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile SOURCE unless its library exists; one process at a time."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "libspirk_fem.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        if out.exists():  # another process built it while this one waited
+            return out
+        cxx = shutil.which("g++") or shutil.which("c++")
+        if cxx is None:
+            raise RuntimeError("no C++ compiler (g++ or c++) found")
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        try:
+            subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, str(SOURCE)], check=True,
+                           capture_output=True, text=True, timeout=300)
+            os.replace(tmp, out)
+        except subprocess.CalledProcessError as e:
+            raise RuntimeError(f"{cxx} failed ({e.returncode}): {e.stderr[-2000:]}") from e
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    return out
+
+
 _core: NativeCore | None | bool = False  # False = not attempted
 
 
 def core() -> NativeCore | None:
-    """The native core, or None if it cannot be loaded/built."""
+    """The native core, built on first use, or None (with a warning, once
+    per process) if it cannot be built or loaded."""
     global _core
     if _core is not False:
         return _core
     _core = None
     try:
-        if not os.path.exists(_SO_PATH):
-            subprocess.run(
-                ["make", "-C", _NATIVE_DIR, "-s"],
-                check=True,
-                capture_output=True,
-                timeout=120,
-            )
-        _core = NativeCore(ctypes.CDLL(_SO_PATH))
-    except Exception:
-        _core = None
+        _core = NativeCore(ctypes.CDLL(str(build())))
+    except Exception as e:  # noqa: BLE001 (any failure takes the numpy route)
+        warnings.warn(f"native setup core unavailable, tables fall back to numpy: {e!r}",
+                      RuntimeWarning, stacklevel=2)
     return _core

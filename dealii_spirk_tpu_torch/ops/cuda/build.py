@@ -63,9 +63,10 @@ SIGNATURES = {
     "spirk_stage_mix": (_P, _P, _P, _I, _I, ctypes.c_longlong, _P),
 }
 
-# diagnostics that no path launches (no LAUNCHES count): K3dg's arms, the
-# arguments of spirk_cheb_iter_dg with the arm before the stream
+# diagnostics that no path launches (no LAUNCHES count): K3's and K3dg's
+# arms, the arguments of spirk_cheb_iter(_dg) with the arm before the stream
 DIAGNOSTICS = {
+    "spirk_cheb_iter_arm": SIGNATURES["spirk_cheb_iter"][:-1] + (_I, _P),
     "spirk_cheb_iter_dg_arm": SIGNATURES["spirk_cheb_iter_dg"][:-1] + (_I, _P),
 }
 

@@ -60,6 +60,8 @@ block counts under ``<key>_2d``), with the Pallas kernels they replace
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..mass_laplace import (
@@ -79,14 +81,18 @@ QMAX = 8  # most stages the stage-coupled kernels hold (csrc/common.cuh)
 # have at least: two per SM of the H100 (132 SMs)
 MARCH_TILE = (16, 64)
 MARCH_MAX_CHUNK = 16
-# the most planes a block of K3dg, K9d or the split march marches at p = 3
-# and 4 (csrc March::ZC, ``march_runs``): a chunk reads the 2p-plane z halo
+# the most planes a block of K3, K3dg, K9c, K9d or the split march marches at
+# p = 3 and 4 (csrc March::ZC, ``march_runs``): a chunk reads the 2p-plane z halo
 # once, so chunks of 32 took K3dg at P17's shape from 1.0203 to 0.9647 ms on
 # the H100 and chunks of 64 from 0.9210 to 0.8996 ms; at P16's (p = 3, m =
 # 191) chunks of 64 leave 432 blocks, 1.6 waves of two per SM, and took
 # 0.3605 against 0.3274 with 32 (PERF.md)
 MARCH_RUNS_MAX_CHUNK = {3: 32, 4: 64}
-MARCH_MIN_BLOCKS = 2 * 132
+SMS = 132  # the H100's streaming multiprocessors
+MARCH_MIN_BLOCKS = 2 * SMS
+# the blocks of K3 and K9c in runs (p >= 3) that one SM holds: csrc
+# March<P, ChebInvd>::BLOCKS, 85,664 / 110,592 B of shared memory at p = 3 / 4
+CHEB_INVD_BLOCKS = 2
 # K8's blocks run stage 1 on 2p more planes per chunk: at P4's 255 level
 # chunks of 32 planes ran 3% faster than chunks of 16 on the H100 (csrc
 # PAIR_MZC, PERF.md)
@@ -311,11 +317,11 @@ def march_plan(q: int, nz: int, m: int, ty: int = MARCH_TILE[0],
 
 
 def march_runs(mode: str, p: int) -> bool:
-    """Whether the mode's y pass runs from registers (csrc March::RUNS: K3dg,
-    K9d and K1's split march at p >= 3): in runs of rows, with its y band
-    rows laid out [mass, stiff][row][k] (k padded to a multiple of 4), and
-    chunks of up to MARCH_RUNS_MAX_CHUNK planes."""
-    return mode in ("ChebDiag", "MixSplit") and p >= 3
+    """Whether the mode's y pass runs from registers (csrc March::RUNS: K3,
+    K3dg, K9c, K9d and K1's split march at p >= 3): in runs of rows, with
+    its y band rows laid out [mass, stiff][row][k] (k padded to a multiple
+    of 4), and chunks of up to MARCH_RUNS_MAX_CHUNK planes."""
+    return mode in ("ChebInvd", "ChebDiag", "MixSplit") and p >= 3
 
 
 def march_max_chunk(mode: str, p: int) -> int:
@@ -393,9 +399,34 @@ def march_planes(nz: int, chunk: int, bz: int) -> tuple[int, int, int]:
     return bz // nch, z0, min(z0 + chunk, nz)
 
 
+@functools.lru_cache(maxsize=None)  # once per shape: the search costs a launch about 7 us of host time
+def cheb_invd_chunk(q: int, nz: int, m: int, p: int) -> int:
+    """The chunk of a K3 or K9c launch at p >= 3 (ChebInvd in runs, two
+    blocks per SM): the power of two up to ``march_max_chunk`` that gives
+    the busiest SM the least work, counted as its blocks (ceil(blocks /
+    SMS)) times the planes of each plus one for the block's ring fill,
+    among the chunks that give every SM its resident blocks where any
+    does; of equal ones the longest.  On the H100 at P16's 95, P17's and
+    P20's 127 levels and P18's first slab this picked the fastest chunk of
+    the sweep or one within 1% of it (PERF.md), where ``march_plan``'s
+    rule (the longest that leaves two blocks per SM) took 16 planes at
+    P16's 95 level (1.09 waves, 16% slower) and 8 on the slab."""
+    tiles = -(-m // MARCH_TILE[1]) * -(-m // MARCH_TILE[0])
+
+    def cost(chunk: int) -> tuple:
+        per_sm = -(-tiles * q * -(-nz // chunk) // SMS)
+        return per_sm < CHEB_INVD_BLOCKS, per_sm * (chunk + 1), -chunk
+
+    cap = march_max_chunk("ChebInvd", p)
+    return min((2**k for k in range(cap.bit_length()) if 2**k <= cap), key=cost)
+
+
 def _runs_plan(ops: LevelOps, q: int, nz: int, mode: str = "ChebDiag") -> tuple[int]:
-    """(chunk,) of a K3dg, K9d or split-march launch: ``march_plan`` with
-    the mode's most planes per block at the level's degree."""
+    """(chunk,) of a K3, K3dg, K9c, K9d or split-march launch:
+    ``march_plan`` with the mode's most planes per block at the level's
+    degree; K3 and K9c in runs ``cheb_invd_chunk``."""
+    if mode == "ChebInvd" and march_runs(mode, ops.p):
+        return (cheb_invd_chunk(q, nz, ops.m, ops.p),)
     return (march_plan(q, nz, ops.m, max_chunk=march_max_chunk(mode, ops.p))[0],)
 
 
@@ -492,7 +523,8 @@ def cheb_iter(ops: LevelOps, a, b, c1, c2, d, r, x, invd):
     for t, name in ((r, "r"), (x, "x"), (invd, "invd")):
         _check_field(t, d.shape, name)
     r_out, d_out, x_out = (torch.empty_like(d) for _ in range(3))
-    _march("spirk_cheb_iter", ops, q, m, (d, r, x, invd, r_out, d_out, x_out), a, b, (c1, c2))
+    _march("spirk_cheb_iter", ops, q, m, (d, r, x, invd, r_out, d_out, x_out), a, b, (c1, c2),
+           plan=_runs_plan(ops, q, m, "ChebInvd"))
     LAUNCHES["cheb_iter"] += 1
     return r_out, d_out, x_out
 
@@ -595,7 +627,7 @@ def cheb_iter_halo(ops: LevelOps, a, b, c1, c2, d_h, r, x, invd):
         _check_field(t, (q, nzl, m, m), name)
     r_out, d_out, x_out = (torch.empty_like(r) for _ in range(3))
     _march("spirk_cheb_iter_halo", ops, q, nzl, (d_h, r, x, invd, r_out, d_out, x_out), a, b,
-           (c1, c2), (nzl, ops.z_off))
+           (c1, c2), (nzl, ops.z_off), plan=_runs_plan(ops, q, nzl, "ChebInvd"))
     LAUNCHES["cheb_iter_halo"] += 1
     return r_out, d_out, x_out
 

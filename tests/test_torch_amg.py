@@ -55,6 +55,7 @@ from dealii_spirk_tpu_torch.solvers.krylov import pcg
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
+from test_torch_setup import same_tables_route  # noqa: E402, F401 (autouse: one tables route)
 
 HIERARCHIES = [(2, 1, 5), (3, 1, 3), (2, 2, 4)]
 BASE = {

@@ -37,6 +37,7 @@ from dealii_spirk_tpu_torch.config import Parameters as TParameters
 from dealii_spirk_tpu_torch.runner import run_config as trun_config
 from dealii_spirk_tpu_torch.solvers import gcr as tgcr
 from dealii_spirk_tpu_torch.utils import vtk as tvtk
+from test_torch_setup import same_tables_route  # noqa: F401 (autouse: one tables route)
 
 
 def _systems():

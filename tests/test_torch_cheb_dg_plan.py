@@ -23,13 +23,17 @@ card (``chip_smoke.py``), the plan and the launch arguments are Python.
   ``build.SIGNATURES``'s arguments in order; ``mix_tile`` picks the route
   exactly where no block holds the q rings, and ``march_smem_bytes`` is
   the shared memory ptxas reported for the Apply mode;
-* the y pass in runs (``march_runs``: K3dg, K9d and the split march at
-  p >= 3): each mode's layout at p = 1-4 (``_mode_smem_bytes``, a mirror
-  of csrc ``March<P, Mode>``) is the shared memory the card's launches
-  reported, with the blocks per SM it allows; their launches at Q3's 191
-  and Q4's 255 levels cover every plane once in chunks of up to
-  ``MARCH_RUNS_MAX_CHUNK``; K1's form per path (Mix's tile, or the route
-  at Q4), and every form ``mix_tile`` picks is held by a kernel case;
+* the y pass in runs (``march_runs``: K3, K3dg, K9c, K9d and the split
+  march at p >= 3): each mode's layout at p = 1-4 (``_mode_smem_bytes``, a
+  mirror of csrc ``March<P, Mode>``; ChebInvd in runs with one plane of
+  its fields) is the shared memory the card's launches reported, with the
+  blocks per SM it allows (ChebInvd in runs: ``CHEB_INVD_BLOCKS``);
+  their launches at Q3's 191 and Q4's 255 levels cover every plane once in
+  chunks of up to ``MARCH_RUNS_MAX_CHUNK``; K3's and K9c's
+  (``cheb_invd_chunk`` at p >= 3) at P16's 95, P17's and P20's 127 levels
+  and on P18's first slab take the chunk of the card's sweep and cover
+  every plane once; K1's form per path (Mix's tile, or the route at Q4),
+  and every form ``mix_tile`` picks is held by a kernel case;
 * K1's library call (``chip_smoke.ms_mix_conv``, one dense conv3d) is K1's
   function: at p = 1 in f64 it equals ``ms_mix_apply_ref``;
 * K8 (the march's pair form): ``pair_tile`` picks 16 rows at p = 1 and 3
@@ -330,16 +334,20 @@ MARCH_MODES = {
 def _mode_smem_bytes(p, mode):
     """csrc ``March<P, Mode>::SMEM_FLOATS`` x 4 on the 16-row tile: the
     rings, the z-pass planes E and F, the y-pass fields C and D, the
-    per-point fields of two planes, the z band rows of a chunk, the y band
-    rows ([mass, stiff][row][k], k padded to 4, where ``march_runs``) and
-    ChebDiag's 1D diagonals."""
+    per-point fields of two planes (ChebInvd in runs: one, csrc
+    March::RX1), the z band rows of a chunk, the y band rows ([mass,
+    stiff][row][k], k padded to 4, where ``march_runs``) and ChebDiag's 1D
+    diagonals."""
     rings, fields, diag = MARCH_MODES[mode]
     ty, tx = st.MARCH_TILE
     nb, hx, hy = 2 * p + 1, tx + 2 * p, ty + 2 * p
     zc = st.march_max_chunk(mode, p)
-    y_rows = 2 * ty * (-(-nb // 4) * 4) if st.march_runs(mode, p) else 2 * nb * ty
+    runs = st.march_runs(mode, p)
+    y_rows = 2 * ty * (-(-nb // 4) * 4) if runs else 2 * nb * ty
+    planes = 1 if mode == "ChebInvd" and runs else 2
     floats = (rings * (2 * p + 2) * hy * hx + 2 * hy * hx + 2 * ty * hx
-              + 2 * fields * ty * tx + 2 * nb * zc + y_rows + (2 * zc + 2 * ty if diag else 0))
+              + planes * fields * ty * tx + 2 * nb * zc + y_rows
+              + (2 * zc + 2 * ty if diag else 0))
     return 4 * floats
 
 
@@ -349,17 +357,20 @@ def _blocks(nbytes):
     return min(4, st.SM_SMEM_BYTES // (nbytes + 1024))
 
 
-# the dynamic shared memory of K3dg's (ChebDiag) and the split march's
-# (MixSplit) launches at p = 1-4 as the card's profiler trace recorded them
-# (csrc March<P, Mode>::SMEM_FLOATS * 4; PERF.md section 6): at p >= 3 the y
-# band rows lie [mass, stiff][row][k], k padded to a multiple of 4, and the
-# z band rows and diagonals are a chunk's of up to 32 (p = 3) or 64 (p = 4)
-# planes
-MODE_SMEM = {("ChebDiag", 1): 54368, ("ChebDiag", 2): 70144, ("ChebDiag", 3): 90144,
+# the dynamic shared memory of K3's and K9c's (ChebInvd), K3dg's (ChebDiag)
+# and the split march's (MixSplit) launches at p = 1-4 as the card's
+# profiler trace recorded them (csrc March<P, Mode>::SMEM_FLOATS * 4; PERF.md
+# section 6): at p >= 3 the y band rows lie [mass, stiff][row][k], k padded
+# to a multiple of 4, and the z band rows and diagonals are a chunk's of up
+# to 32 (p = 3) or 64 (p = 4) planes; ChebInvd there holds one plane of its
+# three fields, not two
+MODE_SMEM = {("ChebInvd", 1): 62304, ("ChebInvd", 2): 78080, ("ChebInvd", 3): 85664,
+             ("ChebInvd", 4): 110592,
+             ("ChebDiag", 1): 54368, ("ChebDiag", 2): 70144, ("ChebDiag", 3): 90144,
              ("ChebDiag", 4): 115328, ("MixSplit", 1): 56736, ("MixSplit", 2): 86144,
              ("MixSplit", 3): 122656, ("MixSplit", 4): 167424}
 # and the blocks per SM that each allows (csrc March::BLOCKS)
-MODE_BLOCKS = {"ChebDiag": (4, 3, 2, 2), "MixSplit": (4, 2, 1, 1)}
+MODE_BLOCKS = {"ChebInvd": (3, 2, 2, 2), "ChebDiag": (4, 3, 2, 2), "MixSplit": (4, 2, 1, 1)}
 
 
 @pytest.mark.parametrize("mode, p", sorted(MODE_SMEM))
@@ -382,8 +393,11 @@ def test_march_blocks_per_sm(p):
         assert 1 <= blocks <= 4
         assert blocks * (nbytes + 1024) <= st.SM_SMEM_BYTES
         assert blocks == 4 or (blocks + 1) * (nbytes + 1024) > st.SM_SMEM_BYTES
-        assert st.march_runs(mode, p) == (mode in ("ChebDiag", "MixSplit") and p >= 3)
+        assert st.march_runs(mode, p) == (mode in ("ChebInvd", "ChebDiag", "MixSplit")
+                                          and p >= 3)
     assert _mode_smem_bytes(p, "Apply") == st.march_smem_bytes(p, st.MARCH_TILE[0], 1)
+    if st.march_runs("ChebInvd", p):  # the blocks cheb_invd_chunk plans for
+        assert _blocks(_mode_smem_bytes(p, "ChebInvd")) == st.CHEB_INVD_BLOCKS
 
 
 @pytest.mark.parametrize("q, m", [(1, 255), (4, 191), (4, 255), (5, 255), (6, 255), (8, 191)])
@@ -401,6 +415,66 @@ def test_plan_covers_the_degree_sweeps_levels(q, m):
     assert ops.m == m
     assert st._runs_plan(ops, q, m) == (chunk,)
     assert st._runs_plan(ops, q, m, "MixSplit") == (chunk,)
+
+
+# K3's and K9c's launches at p >= 3 (ChebInvd in runs): (q, nz, m, p) and the
+# chunk of the H100 sweep (PERF.md: the fastest, or within 1% of it) —
+# P18's first slab (one stage, 64 of 127 planes), P20's 127 level (six
+# lanes), P17's 127 level (q=4), P16's 95 level (q=4, p = 3); and at p = 1
+# P1's finest level and P6's first slab, which keep ``march_plan``'s chunk
+CHEB_INVD_SHAPES = {"P18 slab": (1, 64, 127, 4, 4), "P20 r=5": (6, 127, 127, 4, 32),
+                    "P17 r=5": (4, 127, 127, 4, 32), "P16 r=5": (4, 95, 95, 3, 8),
+                    "P1 r=7": (4, 127, 127, 1, 16), "P6 slab": (1, 64, 127, 1, 2)}
+
+
+@pytest.mark.parametrize("where", sorted(CHEB_INVD_SHAPES))
+def test_cheb_invd_plan_covers_every_plane_once(where):
+    """K3's and K9c's plan (``_runs_plan``, mode ChebInvd): every plane of
+    every stage once, the sweep's chunk; at p >= 3 ``cheb_invd_chunk``, a
+    power of two up to MARCH_RUNS_MAX_CHUNK that gives every SM its two
+    resident blocks, and no other such chunk gives the busiest SM less
+    work; at p = 1 ``march_plan``'s chunk."""
+    q, nz, m, p, want = CHEB_INVD_SHAPES[where]
+    ops = level_ops(make_level(5 if p > 1 else 7, p), torch.float32, "cpu")
+    assert ops.m == m
+    (chunk,) = st._runs_plan(ops, q, nz, "ChebInvd")
+    assert chunk == want
+    seen = _covered(q, nz, m, st.MARCH_TILE[0], per_stage=True, max_chunk=chunk)
+    assert seen == {(i, z): 1 for i in range(q) for z in range(nz)}
+    if p < 3:
+        assert chunk == st.march_plan(q, nz, m)[0]
+        return
+    assert chunk == st.cheb_invd_chunk(q, nz, m, p)
+    cap = st.march_max_chunk("ChebInvd", p)
+    assert chunk & (chunk - 1) == 0 and chunk <= cap
+    tiles = -(-m // st.MARCH_TILE[1]) * -(-m // st.MARCH_TILE[0])
+
+    def per_sm(c):  # the busiest SM's blocks
+        return -(-tiles * q * -(-nz // c) // st.SMS)
+
+    assert per_sm(chunk) >= st.CHEB_INVD_BLOCKS
+    for c in (2**k for k in range(8) if 2**k <= cap):
+        if per_sm(c) >= st.CHEB_INVD_BLOCKS:
+            assert per_sm(c) * (c + 1) >= per_sm(chunk) * (chunk + 1), c
+
+
+def test_cheb_invd_launch_arguments_in_runs(monkeypatch):
+    """At p = 4 K3 and K9c hand their entry points ``_runs_plan``'s chunk
+    (mode ChebInvd), not ``march_plan``'s default."""
+    q = 1
+    ops = level_ops(make_level(5, 4), torch.float32, "cpu")
+    m = ops.m
+    sops = slab_ops(ops, 0, 64)
+    a, c1, c2 = (torch.linspace(lo, lo + 1, q) for lo in (1.0, 0.2, 0.1))
+    calls = _capture(monkeypatch)
+    st.cheb_iter(ops, a, 0.1, c1, c2, *(torch.zeros(q, m, m, m) for _ in range(4)))
+    d_h = torch.zeros(q, 64 + 8, m, m)
+    st.cheb_iter_halo(sops, a, 0.1, c1, c2, d_h, *(torch.zeros(q, 64, m, m) for _ in range(3)))
+    (n1, a1), (n2, a2) = calls
+    assert (n1, n2) == ("spirk_cheb_iter", "spirk_cheb_iter_halo")
+    assert a1[-2:] == (st._runs_plan(ops, q, m, "ChebInvd")[0], 4)
+    assert a2[-4:] == (64, 0, st._runs_plan(sops, q, 64, "ChebInvd")[0], 4)
+    assert a2[-2] != st.march_plan(q, 64, m)[0]
 
 
 # the profiler's names of the march's kernels (csrc march<P, Mode, ARM>, the

@@ -47,6 +47,7 @@ from dealii_spirk_tpu_torch.problem import HeatProblem
 from dealii_spirk_tpu_torch.runner import run_config as trun_config
 from dealii_spirk_tpu_torch.schemes import make_scheme
 from dealii_spirk_tpu_torch.solvers.chebyshev import chebyshev_apply
+from test_torch_setup import same_tables_route  # noqa: F401 (autouse: one tables route)
 
 REL_PAIR = 1e-5
 REL_SMOOTH = 3e-5

@@ -26,6 +26,7 @@ from dealii_spirk_tpu.config import Parameters as JParameters
 from dealii_spirk_tpu.runner import run_config as jrun_config
 from dealii_spirk_tpu_torch.config import Parameters as TParameters
 from dealii_spirk_tpu_torch.runner import run_config as trun_config
+from test_torch_setup import same_tables_route  # noqa: F401 (autouse: one tables route)
 
 CFG = {
     "FEDegree": 4,

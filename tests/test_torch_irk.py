@@ -22,6 +22,7 @@ from dealii_spirk_tpu_torch.ops.cuda import stencil as tst
 from dealii_spirk_tpu_torch.problem import HeatProblem
 from dealii_spirk_tpu_torch.runner import run_config as trun_config
 from dealii_spirk_tpu_torch.schemes import make_scheme
+from test_torch_setup import same_tables_route  # noqa: F401 (autouse: one tables route)
 
 RTOL = 1e-10
 BASE = {

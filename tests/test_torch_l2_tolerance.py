@@ -45,6 +45,7 @@ sys.path.insert(0, os.path.join(_ROOT, "scripts"))
 sys.path.insert(0, _ROOT)
 import chip_smoke  # noqa: E402
 import torch_l2_tolerance as tl2  # noqa: E402
+from test_torch_setup import same_tables_route  # noqa: E402, F401 (autouse: one tables route)
 
 REF, STAGES = 4, 4
 RUNS = "f64:1e-4,f32-plain:1e-4,f64:1e-8"

@@ -26,6 +26,7 @@ from dealii_spirk_tpu_torch.parallel import mesh as tmesh
 from dealii_spirk_tpu_torch.parallel import sharding as tshard
 from dealii_spirk_tpu_torch.parallel.ring import allgather_stage_mix, ring_stage_mix
 from dealii_spirk_tpu_torch.runner import run_config as trun_config
+from test_torch_setup import same_tables_route  # noqa: F401 (autouse: one tables route)
 
 BASE = {
     "FEDegree": 1,

@@ -14,6 +14,7 @@ from dealii_spirk_tpu_torch.ops.cuda import stencil as tst
 from dealii_spirk_tpu_torch.parallel import sharding as tshard
 from dealii_spirk_tpu_torch.parallel.mesh import make_mesh
 from test_torch_parallel import assert_same_run, jax_spirk, torch_run
+from test_torch_setup import same_tables_route  # noqa: F401 (autouse: one tables route)
 
 DIM = 3
 

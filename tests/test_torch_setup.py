@@ -1,7 +1,19 @@
 """Host setup of the PyTorch port against the JAX package: tables, 1D
 bands and transfers, configuration, problem data (u0, load, errors), and
-the rule that the port never imports JAX or the JAX package."""
+the rule that the port never imports JAX or the JAX package.
 
+The IRK tables come from one of two routes in each package, the native
+C++ core or numpy, whose complex eigenvectors differ by O(1) (each
+normalises and phases them its own way) and whose real tables differ in
+the last digits.  ``tables_route`` puts both packages on the same route,
+and ``same_tables_route``, a module fixture that every port test file
+comparing runs with the JAX package imports, holds each module's runs on
+the native route where the port builds its library: a JAX package whose
+library load lost a build race then no longer meets a port that won it.
+The port's own build is held by a race of six processes."""
+
+import contextlib
+import ctypes
 import dataclasses
 import glob
 import os
@@ -16,10 +28,12 @@ import torch
 
 import dealii_spirk_tpu.config as jcfg
 import dealii_spirk_tpu.fem.grid as jgrid
+import dealii_spirk_tpu.native as jnative
 import dealii_spirk_tpu.problem as jprob
 import dealii_spirk_tpu.tables as jtab
 import dealii_spirk_tpu_torch.config as tcfg
 import dealii_spirk_tpu_torch.fem.grid as tgrid
+import dealii_spirk_tpu_torch.native as tnative
 import dealii_spirk_tpu_torch.problem as tprob
 import dealii_spirk_tpu_torch.tables as ttab
 
@@ -27,12 +41,91 @@ ATOL = 1e-14
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@contextlib.contextmanager
+def tables_route(route: str):
+    """Both packages' IRK tables on ``route``: "native" points each
+    package's native core at the port's complete library (built under its
+    lock), "numpy" sets both to None; the tables' caches are cleared on
+    entry and on exit, and the cores are restored on exit."""
+    saved = jnative._core, tnative._core
+    if route == "native":
+        tcore = tnative.core()
+        if tcore is None:
+            pytest.skip("no C++ compiler: the native route cannot be built")
+        cores = jnative.NativeCore(ctypes.CDLL(str(tnative.library_path()))), tcore
+    elif route == "numpy":
+        cores = None, None
+    else:
+        raise ValueError(f"route: native or numpy, got {route!r}")
+    try:
+        jnative._core, tnative._core = cores
+        jtab.irk_tables.cache_clear()
+        ttab.irk_tables.cache_clear()
+        yield
+    finally:
+        jnative._core, tnative._core = saved
+        jtab.irk_tables.cache_clear()
+        ttab.irk_tables.cache_clear()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def same_tables_route():
+    """The module's runs of both packages on the native route (numpy where
+    no C++ compiler builds the port's library)."""
+    with tables_route("native" if tnative.core() is not None else "numpy"):
+        yield
+
+
+@pytest.mark.parametrize("route", ["native", "numpy"])
 @pytest.mark.parametrize("q", [2, 3, 4, 5])
-def test_irk_tables_match(q):
-    jt, tt = jtab.irk_tables(q), ttab.irk_tables(q)
+def test_irk_tables_match(q, route):
+    with tables_route(route):
+        jt, tt = jtab.irk_tables(q), ttab.irk_tables(q)
     for f in dataclasses.fields(jt):
         a, b = getattr(jt, f.name), getattr(tt, f.name)
         np.testing.assert_allclose(b, a, rtol=0, atol=ATOL, err_msg=f.name)
+
+
+# one racer: waits for the start file, then loads the port's native core
+# from an empty build directory and prints whether it loaded, any warning
+# and a digest of irk_tables(5)'s bytes
+_RACER = """
+import dataclasses, hashlib, os, sys, time, warnings
+from pathlib import Path
+import numpy as np
+import dealii_spirk_tpu_torch.native as n
+from dealii_spirk_tpu_torch import tables
+n.BUILD_DIR = Path(sys.argv[1])
+while not os.path.exists(sys.argv[2]):
+    time.sleep(0.001)
+with warnings.catch_warnings(record=True) as caught:
+    warnings.simplefilter("always")
+    core = n.core()
+    t = tables.irk_tables(5)
+h = hashlib.sha256()
+for f in dataclasses.fields(t):
+    h.update(np.asarray(getattr(t, f.name)).tobytes())
+print(core is not None, len(caught), h.hexdigest())
+"""
+
+
+def test_native_build_race(tmp_path):
+    """Six processes load the port's native core at once from an empty
+    build directory: each loads the library (no numpy fallback, no
+    warning), and their irk_tables(5) are equal bit for bit; the
+    directory holds the library and its lock, no temporary file."""
+    build_dir, start = tmp_path / "build", tmp_path / "start"
+    procs = [subprocess.Popen([sys.executable, "-c", _RACER, str(build_dir), str(start)],
+                              cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for _ in range(6)]
+    start.touch()
+    outs = [p.communicate(timeout=240) for p in procs]
+    assert all(p.returncode == 0 for p in procs), [err[-2000:] for _out, err in outs]
+    lines = [out.split() for out, _err in outs]
+    assert all(line[:2] == ["True", "0"] for line in lines), lines
+    assert len({line[2] for line in lines}) == 1, lines
+    assert sorted(f.name for f in build_dir.iterdir()) == [
+        "libspirk_fem.lock", tnative.library_path().name]
 
 
 @pytest.mark.parametrize("dim,p,ref", [(3, 1, 4), (3, 2, 3), (2, 3, 3)])

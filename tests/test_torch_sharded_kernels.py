@@ -45,6 +45,7 @@ from dealii_spirk_tpu_torch.ops.cuda import sharded as tsh
 from dealii_spirk_tpu_torch.ops.cuda import stencil as tst
 from dealii_spirk_tpu_torch.parallel import sharding as tshard
 from dealii_spirk_tpu_torch.parallel.mesh import make_mesh as tmake_mesh
+from test_torch_setup import same_tables_route  # noqa: F401 (autouse: one tables route)
 
 REL = 1e-5
 Q = 4

@@ -32,6 +32,7 @@ from dealii_spirk_tpu_torch.interop import (
 )
 from dealii_spirk_tpu_torch.ops.cuda import stencil as tst
 from dealii_spirk_tpu_torch.ops.mass_laplace import apply_shifted_batched as tapply_shifted
+from test_torch_setup import same_tables_route  # noqa: F401 (autouse: one tables route)
 
 RTOL = 1e-10
 Q = 4
