@@ -116,7 +116,9 @@ Phases; any failure exits non-zero:
    3 and 4 (no library call) K3dg at P16's and P17's finest levels, K3 and
    K4 at P20's, K1 at P17's (its route: the device time of the whole
    call), K2 and ms_mix_apply_split at P19's, K9c on P18's first slab and
-   K3dg at P19's, K3 at P16's 95 and P17's 127 levels: device time per
+   K3dg at P19's, K3 at P16's 95 and P17's 127 levels, K4 at P16's 191
+   and P17's and P19's 255 levels, K9a and K9b on P18's first slab, K5 at
+   P20's vmult and K1 at P16's finest level: device time per
    launch from
    ``torch.profiler`` (only sessions in which every timed launch left its
    record, ``profiler_session``), time per call from CUDA events in turns (kernel,
@@ -125,11 +127,12 @@ Phases; any failure exits non-zero:
    but a turn that reads below the DRAM bound (``sub_bound``) is printed as
    dropped and left out, and a case whose every turn drops fails; the
    least of the kept turns is printed with their median;
-3c. K3dg's and K3's diagnostic arms (``measure_arms``, ARM_CASES: K3dg at
-   P4's 255 level at p = 1, P16's 191 and P17's 255 levels, K3 at P20's and
-   P17's 127 levels): the kernel, its passes alone on resident planes and
-   its copies alone, device time L2-cold; numbers, printed and kept in a
-   line of their own (``cheb_arms``) before the kernels line, not gates;
+3c. K3dg's, K3's and K4's diagnostic arms (``measure_arms``, ARM_CASES:
+   K3dg at P4's 255 level at p = 1, P16's 191 and P17's 255 levels, K3 at
+   P20's and P17's 127 levels, K4 at P20's 127 and P17's 255 levels): the
+   kernel, its passes alone on resident planes and its copies alone,
+   device time L2-cold; numbers, printed and kept in a line of their own
+   (``march_arms``) before the kernels line, not gates;
 4. per path, the kernel arm: the launch counts (all set to 0 just before
    the run, read just after) must equal what the solve structure implies
    and include every kernel of the path (REQUIRED: K3dg on P16, P17, P19
@@ -570,6 +573,16 @@ MEASURE_CASES = [
     # K3 at P16's 95 level (q=4, Q3) and P17's 127 level (q=4, Q4)
     ("cheb_iter", 3, 4, 4, 5, 3),
     ("cheb_iter", 3, 4, 4, 5, 4),
+    # K4 at P17's and P19's 255 levels (q=4, 5) and P16's 191 level (q=4,
+    # Q3); K9a on P18's first slab; K5 at P20's vmult (six lanes, Q4) and
+    # K9b on P18's first slab; K1 at P16's finest level (Mix<16, 4>, Q3)
+    ("stencil_apply", 3, 4, 4, 6, 4),
+    ("stencil_apply", 3, P19_STAGES, P19_STAGES, 6, 4),
+    ("stencil_apply", 3, 4, 4, 6, 3),
+    ("stencil_apply_halo", 3, 1, 1, 5, 4),
+    ("mass_stiffness_apply", 3, 6, 6, 5, 4),
+    ("mass_stiffness_apply_halo", 3, 1, 1, 5, 4),
+    ("ms_mix_apply", 3, 4, 4, 6, 3),
 ]
 # the device kernels of a LAUNCHES key, by name in the profiler (default the
 # key itself): the z march of each mode and its pair form (csrc/march.cuh),
@@ -1520,37 +1533,41 @@ def measure_kernels(device, cases=None) -> list[dict]:
 
 # the diagnostic arms (``measure_arms``): (LAUNCHES key, q, refinement,
 # degree) — K3dg at P4's 255 level at p = 1 (six lanes), P16's 191 and P17's
-# 255 levels (q=4); K3 at P20's 127 level (six lanes, Q4) and P17's (q=4)
+# 255 levels (q=4); K3 at P20's 127 level (six lanes, Q4) and P17's (q=4); K4
+# at P20's 127 level and P17's 255 level
 ARM_CASES = [("cheb_iter_dg", 6, 8, 1), ("cheb_iter_dg", 4, 6, 3), ("cheb_iter_dg", 4, 6, 4),
-             ("cheb_iter", 6, 5, 4), ("cheb_iter", 4, 5, 4)]
+             ("cheb_iter", 6, 5, 4), ("cheb_iter", 4, 5, 4),
+             ("stencil_apply", 6, 5, 4), ("stencil_apply", 4, 6, 4)]
 ARMS = {"kernel": 0, "passes only": 1, "copies only": 2}
-# per key: the kernel's name, its arms' entry point (csrc/cheb_iter.cu) and
-# its march mode
-ARM_ENTRIES = {"cheb_iter": ("K3", "spirk_cheb_iter_arm", "ChebInvd"),
-               "cheb_iter_dg": ("K3dg", "spirk_cheb_iter_dg_arm", "ChebDiag")}
+# per key: the kernel's name, its arms' entry point (csrc/cheb_iter.cu,
+# csrc/stencil_apply.cu), its march mode and its outputs
+ARM_ENTRIES = {"cheb_iter": ("K3", "spirk_cheb_iter_arm", "ChebInvd", 3),
+               "cheb_iter_dg": ("K3dg", "spirk_cheb_iter_dg_arm", "ChebDiag", 3),
+               "stencil_apply": ("K4", "spirk_stencil_apply_arm", "Apply", 1)}
 
 
-def cheb_arm(key: str, ops, a, b, c1, c2, fields, arm: int):
-    """K3's (``key`` "cheb_iter": ``fields`` d, r, x, D^-1) or K3dg's
-    ("cheb_iter_dg": d, r, x) march in one of its diagnostic arms
-    (csrc/cheb_iter.cu::spirk_cheb_iter_arm, spirk_cheb_iter_dg_arm; 0: the
-    kernel itself, through its wrapper): 1 the passes and the update on
-    resident planes, no copy and no store; 2 the copies and stores alone
-    (r' = r, d' = d, x' = x); on the wrapper's plan."""
+def march_arm(key: str, ops, a, b, c1, c2, fields, arm: int):
+    """K3's (``key`` "cheb_iter": ``fields`` d, r, x, D^-1), K3dg's
+    ("cheb_iter_dg": d, r, x) or K4's ("stencil_apply": u) march in one of
+    its diagnostic arms (csrc/cheb_iter.cu::spirk_cheb_iter_arm,
+    spirk_cheb_iter_dg_arm, csrc/stencil_apply.cu::spirk_stencil_apply_arm;
+    0: the kernel itself, through its wrapper): 1 the passes and the update
+    on resident planes, no copy and no store; 2 the copies and stores alone
+    (r' = r, d' = d, x' = x; K4: out = u); on the wrapper's plan."""
     from dealii_spirk_tpu_torch.ops.cuda import stencil as st
 
+    _name, entry, mode, n_out = ARM_ENTRIES[key]
     if arm == 0:
-        return getattr(st, key)(ops, a, b, c1, c2, *fields)
+        return getattr(st, key)(ops, a, b, *((c1, c2) if n_out == 3 else ()), *fields)
     d = fields[0]
     q, m = d.shape[0], ops.m
-    outs = [torch.empty_like(d) for _ in range(3)]
-    tabs = [st._stage_coefs(t, q, d.device) for t in (a, c1, c2)]
-    ins = fields if key == "cheb_iter" else (*fields, ops.mass_diag, ops.stiff_diag)
-    _name, entry, mode = ARM_ENTRIES[key]
+    outs = [torch.empty_like(d) for _ in range(n_out)]
+    tabs = [st._stage_coefs(t, q, d.device) for t in (a, c1, c2)[: 1 + 2 * (n_out == 3)]]
+    ins = (*fields, ops.mass_diag, ops.stiff_diag) if key == "cheb_iter_dg" else fields
     st._launch_raw(
         entry, d.device,
         *(t.data_ptr() for t in (*ins, *outs, ops.mass_band, ops.stiff_band, tabs[0])),
-        float(b), tabs[1].data_ptr(), tabs[2].data_ptr(), q, m, *st._runs_plan(ops, q, m, mode),
+        float(b), *(t.data_ptr() for t in tabs[1:]), q, m, *st._runs_plan(ops, q, m, mode),
         ops.p, arm)
     return tuple(outs)
 
@@ -1573,7 +1590,7 @@ def measure_arms(device, keys=tuple(ARM_ENTRIES)) -> list[dict]:
         m = ops.m
         gen = device_generator(device, 7 * ref + p)
         a, c1, c2 = (torch.linspace(lo, lo + 1, q, device=device) for lo in (0.5, 0.2, 0.1))
-        n_fields = PASSES[key] - 3  # d, r, x and K3's D^-1 (in 0.5 .. 1.5)
+        n_fields = PASSES[key] - ARM_ENTRIES[key][3]  # d (K4: u), r, x and K3's D^-1 (0.5 .. 1.5)
         n_sets = max(2, -(-2 * L2_CACHE_BYTES // (4 * PASSES[key] * q * m**3)))
         sets = [tuple(uniform_field((q, m, m, m), -1.0, 1.0, device, gen).abs_().add_(0.5)
                       if i == 3 else uniform_field((q, m, m, m), -1.0, 1.0, device, gen)
@@ -1582,7 +1599,7 @@ def measure_arms(device, keys=tuple(ARM_ENTRIES)) -> list[dict]:
         row = {"name": ARM_ENTRIES[key][0], "at": f"3D p={p} m={m} q={q}", "bound_ms": bnd[0]}
         for _turn in range(TURNS):
             for name, arm in ARMS.items():
-                call = _rotating(lambda *f, arm=arm: cheb_arm(key, ops, a, 0.1, c1, c2, f, arm),
+                call = _rotating(lambda *f, arm=arm: march_arm(key, ops, a, 0.1, c1, c2, f, arm),
                                  sets)
                 ms = timed_calls(call)[0]
                 dev = device_ms(call, DEVICE_NAMES[key])[0]
@@ -2448,7 +2465,7 @@ def main() -> int:
     measured = measure_kernels(device)
     arms = measure_arms(device)
     launches = run_paths(device, smi)
-    say(json.dumps({"cheb_arms": arms}))
+    say(json.dumps({"march_arms": arms}))
     say(json.dumps(kernel_summary(report, launches, measured)))
     say(json.dumps({
         "ok": True,

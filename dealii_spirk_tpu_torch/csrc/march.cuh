@@ -22,8 +22,8 @@
 // output tile (Mix: every stage's, TY x 64) and marches over a chunk of z
 // planes (at most March::ZC; the wrapper picks the chunk per launch so that
 // a launch has at least two blocks per SM where the field allows,
-// ops/cuda/stencil.py::march_plan; K3 and K9c at p >= 3 so that the busiest
-// SM has the least work, cheb_invd_chunk).  It keeps a ring of 2p + 2 haloed
+// ops/cuda/stencil.py::march_plan; K3, K9c, K4 and K9a at p >= 3 so that the
+// busiest SM has the least work, runs_chunk).  It keeps a ring of 2p + 2 haloed
 // planes of each operand in shared memory (MixSplit two, Mix one per
 // stage): the 2p + 1 that the z pass of the current plane reads and the
 // next one, which cp.async copies in while the block computes the current
@@ -46,7 +46,8 @@
 // shared memory, so above p = 1 the passes set as much of the time as the
 // copies: at P17's shape (p = 4) K3dg's passes alone took 0.70 ms and its
 // copies alone 0.74, against 1.11 for the kernel and a DRAM bound of 0.48
-// (PERF.md).  So K3, K3dg, K9c, K9d and MixSplit at p >= 3 (March::RUNS)
+// (PERF.md).  So K3, K3dg, K9c, K9d, MixSplit and, since the same passes held
+// K4 at 0.17 of its bound at p = 4, Apply (K4, K9a) at p >= 3 (March::RUNS)
 // take the z pass over groups of 4 adjacent points in 16-byte loads (on the
 // H100 2.7-3.6% off each at p = 4 against z_sums per point, PERF.md), the y
 // pass in runs of 4 tile rows of a column summed from the 4 + 2p entries
@@ -115,7 +116,7 @@ struct March {
   static constexpr int PLANE = HY * HX;  // one haloed plane of an operand
   static constexpr bool DIAG = std::is_same<Mode, ChebDiag>::value;
   static constexpr bool MIX = Mode::RINGS == 0;
-  // K3, K3dg, K9c, K9d and K1's split march at p >= 3 (RUNS): the z pass
+  // K3, K3dg, K9c, K9d, K4, K9a and K1's split march at p >= 3 (RUNS): the z pass
   // over groups of 4 adjacent points in 16-byte loads and stores (z_pass),
   // the y pass in runs (y_run: a thread sums RY tile rows of one column from
   // registers, its rows' weights in 16-byte loads of [mass, stiff][row][k]
@@ -125,9 +126,11 @@ struct March {
   // MARCH_RUNS_MAX_CHUNK); the other modes and degrees keep z_sums and
   // y_sums per point over [mass, stiff][k][row] and chunks of MZC
   static constexpr bool INVD = std::is_same<Mode, ChebInvd>::value;
-  static constexpr bool RUNS = (DIAG || INVD || std::is_same<Mode, MixSplit>::value) && P >= 3;
+  static constexpr bool RUNS = (DIAG || INVD || std::is_same<Mode, MixSplit>::value ||
+                                std::is_same<Mode, Apply>::value) &&
+                               P >= 3;
   // ChebInvd in runs: the per-point fields of one plane, not two (the
-  // header; stencil.py::CHEB_INVD_BLOCKS)
+  // header; stencil.py::RUNS_BLOCKS)
   static constexpr bool RX1 = INVD && RUNS;
   static constexpr int RING = 2 * P + 2;  // planes z - p .. z + p and the next one
   static constexpr int LOADS = (PLANE + NTHREADS - 1) / NTHREADS;  // a plane's copies per thread
@@ -350,10 +353,12 @@ __device__ __forceinline__ float cheb_d(float c1, float d, float c2, float z) {
   return fmaf(c1, d, c2 * z);
 }
 
-// ARM (a diagnostic of ChebDiag, cheb_iter.cu::spirk_cheb_iter_dg_arm): 0 the
-// kernel; PASSES the three passes and the update on planes already resident
-// in shared memory (zeros), with no cp.async and no global store; COPIES the
-// copies and stores alone (r' = r, d' = d at the centre, x' = x), no pass
+// ARM (a diagnostic of ChebDiag, ChebInvd and Apply: cheb_iter.cu::
+// spirk_cheb_iter_dg_arm, spirk_cheb_iter_arm, stencil_apply.cu::
+// spirk_stencil_apply_arm): 0 the kernel; PASSES the three passes and the
+// update on planes already resident in shared memory (zeros), with no
+// cp.async and no global store; COPIES the copies and stores alone (r' = r,
+// d' = d at the centre, x' = x; Apply: out = d at the centre), no pass
 constexpr int PASSES = 1, COPIES = 2;
 
 // grid (ceil(m / MX), ceil(m / TY), ceil(zs.nz / chunk) per stage, times q
@@ -600,7 +605,10 @@ march(const MarchArgs g) {
         } else if constexpr (MS) {
           g.out[gi] = mu;
           g.d_out[gi] = ad;
+        } else if constexpr (NF == 0 && ARM == COPIES) {
+          g.out[gi] = centre[c0];
         } else if constexpr (NF == 0) {
+          if (ARM == PASSES && zs.nz > 0) continue;  // (always): no store
           g.out[gi] = ad;
         } else if constexpr (ARM == COPIES) {
           g.out[gi] = fk[s * NTHREADS];

@@ -15,7 +15,11 @@
 // planes of one stage's (y, x) tile over a cp.async ring of haloed u planes
 // and writes out, the stiffness taps summed apart from the mass taps in the
 // y and x passes (out = Mx C + Kx D as two sums; the earlier tile kernel
-// added them in one accumulator).  K9a (spirk_stencil_apply_halo) is the same
+// added them in one accumulator); at p >= 3 its passes run in runs
+// (March::RUNS: the z pass over 4-point groups, the y pass over 4-row runs,
+// chunks of up to 32 / 64 planes planned by stencil.py::runs_chunk); with
+// z_sums and y_sums per point it reached 0.17 of its DRAM bound at p = 4
+// (PERF.md).  K9a (spirk_stencil_apply_halo) is the same
 // launch on one z slab of a space-sharded block: u is (q, nzl + 2p, m, m)
 // with p planes of each z neighbour (zeros at the domain ends), out the
 // slab's (q, nzl, m, m), the z band rows those of global planes z_off ..
@@ -197,6 +201,7 @@ cudaError_t launch_stencil_apply_2d(const float* u, float* out, const float* mba
   return cudaGetLastError();
 }
 
+template <int ARM = 0>
 int apply_entry(const float* u, float* out, const float* mband, const float* kband,
                 const float* a, float b, int q, int m, ZSlab zs, int chunk, int p,
                 void* stream) {
@@ -210,7 +215,7 @@ int apply_entry(const float* u, float* out, const float* mband, const float* kba
   g.m = m;
   g.chunk = chunk;
   g.zs = zs;
-  return march_entry<Apply>(g, q, p, stream);
+  return march_entry<Apply, ARM>(g, q, p, stream);
 }
 
 }  // namespace spirk
@@ -230,6 +235,23 @@ extern "C" int spirk_stencil_apply_halo(const float* u, float* out, const float*
                                         void* stream) {
   return spirk::apply_entry(u, out, mband, kband, a, b, q, m, spirk::ZSlab{nzl, p, z_off},
                             chunk, p, stream);
+}
+
+// K4's diagnostic arms (march.cuh ARM; not a kernel of any path, and no
+// LAUNCHES count): arm 1 the passes alone on resident planes, arm 2 the
+// copies and stores alone (out = u); the arguments of spirk_stencil_apply,
+// then arm
+extern "C" int spirk_stencil_apply_arm(const float* u, float* out, const float* mband,
+                                       const float* kband, const float* a, float b, int q,
+                                       int m, int chunk, int p, int arm, void* stream) {
+  const spirk::ZSlab zs = spirk::whole_field(m);
+  if (arm == spirk::PASSES)
+    return spirk::apply_entry<spirk::PASSES>(u, out, mband, kband, a, b, q, m, zs, chunk, p,
+                                             stream);
+  if (arm == spirk::COPIES)
+    return spirk::apply_entry<spirk::COPIES>(u, out, mband, kband, a, b, q, m, zs, chunk, p,
+                                             stream);
+  return cudaErrorInvalidValue;
 }
 
 extern "C" int spirk_stencil_apply_2d(const float* u, float* out, const float* mband,

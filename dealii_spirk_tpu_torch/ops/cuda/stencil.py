@@ -81,18 +81,20 @@ QMAX = 8  # most stages the stage-coupled kernels hold (csrc/common.cuh)
 # have at least: two per SM of the H100 (132 SMs)
 MARCH_TILE = (16, 64)
 MARCH_MAX_CHUNK = 16
-# the most planes a block of K3, K3dg, K9c, K9d or the split march marches at
-# p = 3 and 4 (csrc March::ZC, ``march_runs``): a chunk reads the 2p-plane z halo
-# once, so chunks of 32 took K3dg at P17's shape from 1.0203 to 0.9647 ms on
+# the most planes a block of K3, K3dg, K9c, K9d, K4, K9a or the split march
+# marches at p = 3 and 4 (csrc March::ZC, ``march_runs``): a chunk reads the
+# 2p-plane z halo once, so chunks of 32 took K3dg at P17's shape from 1.0203 to 0.9647 ms on
 # the H100 and chunks of 64 from 0.9210 to 0.8996 ms; at P16's (p = 3, m =
 # 191) chunks of 64 leave 432 blocks, 1.6 waves of two per SM, and took
 # 0.3605 against 0.3274 with 32 (PERF.md)
 MARCH_RUNS_MAX_CHUNK = {3: 32, 4: 64}
 SMS = 132  # the H100's streaming multiprocessors
 MARCH_MIN_BLOCKS = 2 * SMS
-# the blocks of K3 and K9c in runs (p >= 3) that one SM holds: csrc
-# March<P, ChebInvd>::BLOCKS, 85,664 / 110,592 B of shared memory at p = 3 / 4
-CHEB_INVD_BLOCKS = 2
+# the blocks that one SM holds of the modes in runs (p >= 3) whose launches
+# plan their chunks by the busiest SM's work (``runs_chunk``), per degree:
+# csrc March<P, Mode>::BLOCKS — ChebInvd (K3, K9c) 85,664 / 110,592 B of
+# shared memory at p = 3 / 4, Apply (K4, K9a) 73,376 / 98,304 B
+RUNS_BLOCKS = {"ChebInvd": {3: 2, 4: 2}, "Apply": {3: 3, 4: 2}}
 # K8's blocks run stage 1 on 2p more planes per chunk: at P4's 255 level
 # chunks of 32 planes ran 3% faster than chunks of 16 on the H100 (csrc
 # PAIR_MZC, PERF.md)
@@ -317,11 +319,13 @@ def march_plan(q: int, nz: int, m: int, ty: int = MARCH_TILE[0],
 
 
 def march_runs(mode: str, p: int) -> bool:
-    """Whether the mode's y pass runs from registers (csrc March::RUNS: K3,
-    K3dg, K9c, K9d and K1's split march at p >= 3): in runs of rows, with
+    """Whether the mode's passes run in runs (csrc March::RUNS: K3, K3dg,
+    K9c, K9d, K4, K9a (Apply) and K1's split march at p >= 3): the z pass
+    over 4-point groups, the y pass from registers in runs of rows, with
     its y band rows laid out [mass, stiff][row][k] (k padded to a multiple
-    of 4), and chunks of up to MARCH_RUNS_MAX_CHUNK planes."""
-    return mode in ("ChebInvd", "ChebDiag", "MixSplit") and p >= 3
+    of 4), and chunks of up to MARCH_RUNS_MAX_CHUNK planes.  MassStiff and
+    Mix keep their sums per point."""
+    return mode in ("ChebInvd", "ChebDiag", "MixSplit", "Apply") and p >= 3
 
 
 def march_max_chunk(mode: str, p: int) -> int:
@@ -400,48 +404,51 @@ def march_planes(nz: int, chunk: int, bz: int) -> tuple[int, int, int]:
 
 
 @functools.lru_cache(maxsize=None)  # once per shape: the search costs a launch about 7 us of host time
-def cheb_invd_chunk(q: int, nz: int, m: int, p: int) -> int:
-    """The chunk of a K3 or K9c launch at p >= 3 (ChebInvd in runs, two
-    blocks per SM): the power of two up to ``march_max_chunk`` that gives
-    the busiest SM the least work, counted as its blocks (ceil(blocks /
-    SMS)) times the planes of each plus one for the block's ring fill,
-    among the chunks that give every SM its resident blocks where any
-    does; of equal ones the longest.  On the H100 at P16's 95, P17's and
-    P20's 127 levels and P18's first slab this picked the fastest chunk of
-    the sweep or one within 1% of it (PERF.md), where ``march_plan``'s
-    rule (the longest that leaves two blocks per SM) took 16 planes at
-    P16's 95 level (1.09 waves, 16% slower) and 8 on the slab."""
+def runs_chunk(mode: str, q: int, nz: int, m: int, p: int) -> int:
+    """The chunk of a launch of a mode of RUNS_BLOCKS in runs (p >= 3: K3
+    and K9c, ChebInvd, two blocks per SM; K4 and K9a, Apply, three at p = 3
+    and two at p = 4): the power of two up to ``march_max_chunk`` that
+    gives the busiest SM the least work, counted as its blocks (ceil(blocks
+    / SMS)) times the planes of each plus one for the block's ring fill,
+    among the chunks that give every SM the mode's resident blocks where
+    any does; of equal ones the longest.  For K3 and K9c on the H100 at
+    P16's 95, P17's and P20's 127 levels and P18's first slab this picked
+    the fastest chunk of the sweep or one within 1% of it (PERF.md), where
+    ``march_plan``'s rule (the longest that leaves two blocks per SM) took
+    16 planes at P16's 95 level (1.09 waves, 16% slower) and 8 on the
+    slab; for K4 and K9a at P20's 127, P17's and P19's 255 and P16's 191
+    levels and on P18's first slab the fastest of the sweep
+    (scripts/torch_chunk_sweep.py)."""
     tiles = -(-m // MARCH_TILE[1]) * -(-m // MARCH_TILE[0])
+    resident = RUNS_BLOCKS[mode][p]
 
     def cost(chunk: int) -> tuple:
         per_sm = -(-tiles * q * -(-nz // chunk) // SMS)
-        return per_sm < CHEB_INVD_BLOCKS, per_sm * (chunk + 1), -chunk
+        return per_sm < resident, per_sm * (chunk + 1), -chunk
 
-    cap = march_max_chunk("ChebInvd", p)
+    cap = march_max_chunk(mode, p)
     return min((2**k for k in range(cap.bit_length()) if 2**k <= cap), key=cost)
 
 
 def _runs_plan(ops: LevelOps, q: int, nz: int, mode: str = "ChebDiag") -> tuple[int]:
-    """(chunk,) of a K3, K3dg, K9c, K9d or split-march launch:
-    ``march_plan`` with the mode's most planes per block at the level's
-    degree; K3 and K9c in runs ``cheb_invd_chunk``."""
-    if mode == "ChebInvd" and march_runs(mode, ops.p):
-        return (cheb_invd_chunk(q, nz, ops.m, ops.p),)
+    """(chunk,) of a launch of a march mode but Mix: ``march_plan`` with
+    the mode's most planes per block at the level's degree; K3, K9c, K4 and
+    K9a in runs (RUNS_BLOCKS) ``runs_chunk``."""
+    if mode in RUNS_BLOCKS and march_runs(mode, ops.p):
+        return (runs_chunk(mode, q, nz, ops.m, ops.p),)
     return (march_plan(q, nz, ops.m, max_chunk=march_max_chunk(mode, ops.p))[0],)
 
 
-def _march(name: str, ops: LevelOps, q: int, nz: int, fields: tuple, a, b, cs=(),
-           slab=(), plan=None) -> None:
-    """Launch the z-march entry point ``name`` over ``nz`` output planes of
-    ``q`` stages: ``fields`` (the tensors before the band tables), the band
-    tables, ``a`` as a (q,) table, ``b`` by value, ``cs`` (Chebyshev: c1,
-    c2; K8: c1a, c2a, c1b, c2b) as (q,) tables (no device op where they are
-    f32 (q,) tensors already), q, m, ``slab`` (a slab's nzl, z_off), then
-    ``plan`` (K8: its tile height and chunk; by default ``march_plan``'s
-    chunk), p."""
+def _march(name: str, ops: LevelOps, q: int, fields: tuple, a, b, cs=(), slab=(), *,
+           plan: tuple) -> None:
+    """Launch the z-march entry point ``name`` over ``q`` stages:
+    ``fields`` (the tensors before the band tables), the band tables, ``a``
+    as a (q,) table, ``b`` by value, ``cs`` (Chebyshev: c1, c2; K8: c1a,
+    c2a, c1b, c2b) as (q,) tables (no device op where they are f32 (q,)
+    tensors already), q, m, ``slab`` (a slab's nzl, z_off), then
+    ``plan`` (the chunk, ``_runs_plan``; K8: its tile height and chunk), p."""
     device = fields[0].device
     tabs = [_stage_coefs(c, q, device) for c in (a, *cs)]  # held until the launch is queued
-    plan = plan or (march_plan(q, nz, ops.m)[0],)
     _launch_raw(name, device, *(t.data_ptr() for t in fields), ops.mass_band.data_ptr(),
                 ops.stiff_band.data_ptr(), tabs[0].data_ptr(), float(b),
                 *(t.data_ptr() for t in tabs[1:]), q, ops.m, *slab, *plan, ops.p)
@@ -487,7 +494,8 @@ def stencil_apply(ops: LevelOps, a, b, u: torch.Tensor) -> torch.Tensor:
     q, m, p = _check_block(ops, u, "u")
     out = torch.empty_like(u)
     if u.ndim == 4:
-        _march("spirk_stencil_apply", ops, q, m, (u, out), a, b)
+        _march("spirk_stencil_apply", ops, q, (u, out), a, b,
+               plan=_runs_plan(ops, q, m, "Apply"))
         LAUNCHES["stencil_apply"] += 1
         return out
     coefs = _stage_coefs(a, q, u.device)  # held until the launch is queued
@@ -523,7 +531,7 @@ def cheb_iter(ops: LevelOps, a, b, c1, c2, d, r, x, invd):
     for t, name in ((r, "r"), (x, "x"), (invd, "invd")):
         _check_field(t, d.shape, name)
     r_out, d_out, x_out = (torch.empty_like(d) for _ in range(3))
-    _march("spirk_cheb_iter", ops, q, m, (d, r, x, invd, r_out, d_out, x_out), a, b, (c1, c2),
+    _march("spirk_cheb_iter", ops, q, (d, r, x, invd, r_out, d_out, x_out), a, b, (c1, c2),
            plan=_runs_plan(ops, q, m, "ChebInvd"))
     LAUNCHES["cheb_iter"] += 1
     return r_out, d_out, x_out
@@ -543,7 +551,7 @@ def cheb_iter_dg(ops: LevelOps, a, b, c1, c2, d, r, x):
     for t in (ops.mass_diag, ops.stiff_diag):
         _check_field(t, (m,), "1D diagonal")
     r_out, d_out, x_out = (torch.empty_like(d) for _ in range(3))
-    _march("spirk_cheb_iter_dg", ops, q, m,
+    _march("spirk_cheb_iter_dg", ops, q,
            (d, r, x, ops.mass_diag, ops.stiff_diag, r_out, d_out, x_out), a, b, (c1, c2),
            plan=_runs_plan(ops, q, m))
     LAUNCHES["cheb_iter_dg"] += 1
@@ -567,7 +575,7 @@ def cheb_pair_dg(ops: LevelOps, a, b, c1a, c2a, c1b, c2b, d, r, x):
     r_out, d_out, x_out = (torch.empty_like(d) for _ in range(3))
     ty = pair_tile(p)
     chunk, _grid = march_plan(q, m, m, ty, max_chunk=PAIR_MAX_CHUNK)
-    _march("spirk_cheb_pair_dg", ops, q, m,
+    _march("spirk_cheb_pair_dg", ops, q,
            (d, r, x, ops.mass_diag, ops.stiff_diag, r_out, d_out, x_out), a, b,
            (c1a, c2a, c1b, c2b), plan=(ty, chunk))
     LAUNCHES["cheb_pair_dg"] += 1
@@ -599,7 +607,8 @@ def stencil_apply_halo(ops: LevelOps, a, b, u_h: torch.Tensor) -> torch.Tensor:
         return stencil_apply_halo_ref(ops, a, b, u_h)
     q, m, _, nzl = _check_slab(ops, u_h, "u_h")
     out = torch.empty((q, nzl, m, m), dtype=u_h.dtype, device=u_h.device)
-    _march("spirk_stencil_apply_halo", ops, q, nzl, (u_h, out), a, b, slab=(nzl, ops.z_off))
+    _march("spirk_stencil_apply_halo", ops, q, (u_h, out), a, b, slab=(nzl, ops.z_off),
+           plan=_runs_plan(ops, q, nzl, "Apply"))
     LAUNCHES["stencil_apply_halo"] += 1
     return out
 
@@ -626,7 +635,7 @@ def cheb_iter_halo(ops: LevelOps, a, b, c1, c2, d_h, r, x, invd):
     for t, name in ((r, "r"), (x, "x"), (invd, "invd")):
         _check_field(t, (q, nzl, m, m), name)
     r_out, d_out, x_out = (torch.empty_like(r) for _ in range(3))
-    _march("spirk_cheb_iter_halo", ops, q, nzl, (d_h, r, x, invd, r_out, d_out, x_out), a, b,
+    _march("spirk_cheb_iter_halo", ops, q, (d_h, r, x, invd, r_out, d_out, x_out), a, b,
            (c1, c2), (nzl, ops.z_off), plan=_runs_plan(ops, q, nzl, "ChebInvd"))
     LAUNCHES["cheb_iter_halo"] += 1
     return r_out, d_out, x_out
@@ -643,7 +652,7 @@ def cheb_iter_dg_halo(ops: LevelOps, a, b, c1, c2, d_h, r, x):
     for t in (ops.mass_diag, ops.stiff_diag):
         _check_field(t, (m,), "1D diagonal")
     r_out, d_out, x_out = (torch.empty_like(r) for _ in range(3))
-    _march("spirk_cheb_iter_dg_halo", ops, q, nzl,
+    _march("spirk_cheb_iter_dg_halo", ops, q,
            (d_h, r, x, ops.mass_diag, ops.stiff_diag, r_out, d_out, x_out), a, b, (c1, c2),
            (nzl, ops.z_off), plan=_runs_plan(ops, q, nzl))
     LAUNCHES["cheb_iter_dg_halo"] += 1

@@ -25,8 +25,8 @@ takes a digest of its outputs' bytes, and the arms' digests of BITWISE
 (K3, K4, K9c, K9a, K3dg, K9d, K1, K1's split route, K5, K9b) must be
 equal, as ``torch.equal`` would find them (but for NEW_SUMS);
 ``--smooth`` adds the 2D and 3D smooth-field rows (Q1, and at degrees 3
-and 4); ``--arms`` K3's and K3dg's diagnostic arms
-(``chip_smoke.measure_arms``) in each arm whose library has them.  The
+and 4); ``--arms`` K3's, K3dg's and K4's diagnostic arms
+(``chip_smoke.measure_arms``) of KEYS in each arm whose library has them.  The
 arms' wrappers must take the same Python arguments.  Prints one line per
 arm and case, a table, and writes every figure as JSON to ``--out``.  Needs a CUDA
 device; imports nothing of JAX.
@@ -70,7 +70,7 @@ def run_arm(tree: str, smooth: bool, check: bool, keys=KEYS, arms: bool = False)
     """In this process: the measurement of KEYS on ``tree``'s package;
     ``check``: each kernel held to its plain version at the measured shape
     first (``chip_smoke.REL_TOL``) and its outputs' digest kept; ``arms``:
-    K3's and K3dg's diagnostic arms too (``chip_smoke.measure_arms``),
+    K3's, K3dg's and K4's diagnostic arms too (``chip_smoke.measure_arms``),
     where the tree's library has them."""
     sys.path.insert(0, os.path.abspath(tree))
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
@@ -109,10 +109,11 @@ def run_arm(tree: str, smooth: bool, check: bool, keys=KEYS, arms: bool = False)
             digests[f"{case[0]} {c['at']}"] = digest(got)
             del c, inputs, got
     out = {"tree": tree, "digests": digests, "measured": cs.measure_kernels(device, cases)}
-    if arms:  # the arms this tree's library has
+    if arms:  # the arms of KEYS this tree's library has
         lib = build.load_library()
-        out["arms"] = cs.measure_arms(
-            device, [k for k, (_n, entry, _m) in cs.ARM_ENTRIES.items() if hasattr(lib, entry)])
+        out["arms"] = cs.measure_arms(device, [
+            k for k, (_n, entry, *_rest) in cs.ARM_ENTRIES.items()
+            if k in keys and hasattr(lib, entry)])
     if smooth:
         out["smooth"] = [row for cases in (cs.smooth_cases_2d(device), cs.smooth_cases_3d(device),
                                            cs.smooth_cases_degree(device))
@@ -128,7 +129,7 @@ def main(argv=None) -> int:
     ap.add_argument("--smooth", action="store_true")
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--arms", action="store_true",
-                    help="K3's and K3dg's passes-only and copies-only arms")
+                    help="K3's, K3dg's and K4's passes-only and copies-only arms")
     ap.add_argument("--keys", default=",".join(KEYS), help="the KEYS to measure, comma-separated")
     ap.add_argument("--out", default=None)
     ap.add_argument("--arm", help=argparse.SUPPRESS)

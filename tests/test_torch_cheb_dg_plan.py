@@ -22,18 +22,20 @@ card (``chip_smoke.py``), the plan and the launch arguments are Python.
   every stage once at its own tile; the wrappers hand their entry points
   ``build.SIGNATURES``'s arguments in order; ``mix_tile`` picks the route
   exactly where no block holds the q rings, and ``march_smem_bytes`` is
-  the shared memory ptxas reported for the Apply mode;
-* the y pass in runs (``march_runs``: K3, K3dg, K9c, K9d and the split
-  march at p >= 3): each mode's layout at p = 1-4 (``_mode_smem_bytes``, a
-  mirror of csrc ``March<P, Mode>``; ChebInvd in runs with one plane of
-  its fields) is the shared memory the card's launches reported, with the
-  blocks per SM it allows (ChebInvd in runs: ``CHEB_INVD_BLOCKS``);
-  their launches at Q3's 191 and Q4's 255 levels cover every plane once in
-  chunks of up to ``MARCH_RUNS_MAX_CHUNK``; K3's and K9c's
-  (``cheb_invd_chunk`` at p >= 3) at P16's 95, P17's and P20's 127 levels
-  and on P18's first slab take the chunk of the card's sweep and cover
-  every plane once; K1's form per path (Mix's tile, or the route at Q4),
-  and every form ``mix_tile`` picks is held by a kernel case;
+  the shared memory ptxas reported for a one-ring mode outside runs;
+* the passes in runs (``march_runs``: K3, K3dg, K9c, K9d, K4, K9a and the
+  split march at p >= 3): each mode's layout at p = 1-4
+  (``_mode_smem_bytes``, a mirror of csrc ``March<P, Mode>``; ChebInvd in
+  runs with one plane of its fields) is the shared memory the card's
+  launches reported, with the blocks per SM it allows (the modes of
+  ``RUNS_BLOCKS`` in runs: those it plans for); their launches at Q3's
+  191 and Q4's 255 levels cover every plane once in chunks of up to
+  ``MARCH_RUNS_MAX_CHUNK``; K3's and K9c's, K4's and K9a's (``runs_chunk``
+  at p >= 3) at the degree sweep's levels and on P18's slabs take the
+  chunk of the card's sweep and cover every plane once, and the wrappers
+  hand their entry points that chunk (at p <= 2 ``march_plan``'s); K1's
+  form per path (Mix's tile, or the route at Q4), and every form
+  ``mix_tile`` picks is held by a kernel case;
 * K1's library call (``chip_smoke.ms_mix_conv``, one dense conv3d) is K1's
   function: at p = 1 in f64 it equals ``ms_mix_apply_ref``;
 * K8 (the march's pair form): ``pair_tile`` picks 16 rows at p = 1 and 3
@@ -357,20 +359,27 @@ def _blocks(nbytes):
     return min(4, st.SM_SMEM_BYTES // (nbytes + 1024))
 
 
-# the dynamic shared memory of K3's and K9c's (ChebInvd), K3dg's (ChebDiag)
-# and the split march's (MixSplit) launches at p = 1-4 as the card's
-# profiler trace recorded them (csrc March<P, Mode>::SMEM_FLOATS * 4; PERF.md
-# section 6): at p >= 3 the y band rows lie [mass, stiff][row][k], k padded
-# to a multiple of 4, and the z band rows and diagonals are a chunk's of up
-# to 32 (p = 3) or 64 (p = 4) planes; ChebInvd there holds one plane of its
-# three fields, not two
+# the dynamic shared memory of K3's and K9c's (ChebInvd), K3dg's (ChebDiag),
+# K4's and K9a's (Apply), K5's and K9b's (MassStiff) and the split march's
+# (MixSplit) launches at p = 1-4 as the card's profiler trace recorded them
+# (csrc March<P, Mode>::SMEM_FLOATS * 4; PERF.md section 6): in runs (p >= 3,
+# all but MassStiff) the y band rows lie [mass, stiff][row][k], k padded to a
+# multiple of 4, and the z band rows and diagonals are a chunk's of up to 32
+# (p = 3) or 64 (p = 4) planes; ChebInvd there holds one plane of its three
+# fields, not two
 MODE_SMEM = {("ChebInvd", 1): 62304, ("ChebInvd", 2): 78080, ("ChebInvd", 3): 85664,
              ("ChebInvd", 4): 110592,
              ("ChebDiag", 1): 54368, ("ChebDiag", 2): 70144, ("ChebDiag", 3): 90144,
              ("ChebDiag", 4): 115328, ("MixSplit", 1): 56736, ("MixSplit", 2): 86144,
-             ("MixSplit", 3): 122656, ("MixSplit", 4): 167424}
+             ("MixSplit", 3): 122656, ("MixSplit", 4): 167424,
+             ("Apply", 1): 37728, ("Apply", 2): 53504, ("Apply", 3): 73376,
+             ("Apply", 4): 98304, ("MassStiff", 1): 37728, ("MassStiff", 2): 53504,
+             ("MassStiff", 3): 72352, ("MassStiff", 4): 94464}
 # and the blocks per SM that each allows (csrc March::BLOCKS)
-MODE_BLOCKS = {"ChebInvd": (3, 2, 2, 2), "ChebDiag": (4, 3, 2, 2), "MixSplit": (4, 2, 1, 1)}
+MODE_BLOCKS = {"ChebInvd": (3, 2, 2, 2), "ChebDiag": (4, 3, 2, 2), "MixSplit": (4, 2, 1, 1),
+               "Apply": (4, 4, 3, 2), "MassStiff": (4, 4, 3, 2)}
+# the modes whose passes run in runs at p >= 3 (csrc March::RUNS)
+RUNS_MODES = ("ChebInvd", "ChebDiag", "MixSplit", "Apply")
 
 
 @pytest.mark.parametrize("mode, p", sorted(MODE_SMEM))
@@ -379,25 +388,30 @@ def test_march_mode_smem_is_the_kernels_layout(mode, p):
     assert nbytes == MODE_SMEM[mode, p]
     assert nbytes <= st.BLOCK_SMEM_BYTES
     assert _blocks(nbytes) == MODE_BLOCKS[mode][p - 1]
-    assert st.march_runs(mode, p) == (p >= 3)
-    assert st.march_max_chunk(mode, p) == {3: 32, 4: 64}.get(p, st.MARCH_MAX_CHUNK)
+    runs = mode in RUNS_MODES and p >= 3
+    assert st.march_runs(mode, p) == runs
+    assert st.march_max_chunk(mode, p) == ({3: 32, 4: 64}[p] if runs else st.MARCH_MAX_CHUNK)
 
 
 @pytest.mark.parametrize("p", [1, 2, 3, 4])
 def test_march_blocks_per_sm(p):
     """The blocks per SM that each mode's shared memory allows, at most 4:
-    the other modes' layouts do not change with the passes in runs."""
+    MassStiff's and Mix's layouts (``march_smem_bytes``) do not change with
+    the passes in runs, and the modes that ``runs_chunk`` plans for hold the
+    blocks of RUNS_BLOCKS."""
     for mode in MARCH_MODES:
         nbytes = _mode_smem_bytes(p, mode)
         blocks = _blocks(nbytes)
         assert 1 <= blocks <= 4
         assert blocks * (nbytes + 1024) <= st.SM_SMEM_BYTES
         assert blocks == 4 or (blocks + 1) * (nbytes + 1024) > st.SM_SMEM_BYTES
-        assert st.march_runs(mode, p) == (mode in ("ChebInvd", "ChebDiag", "MixSplit")
-                                          and p >= 3)
-    assert _mode_smem_bytes(p, "Apply") == st.march_smem_bytes(p, st.MARCH_TILE[0], 1)
-    if st.march_runs("ChebInvd", p):  # the blocks cheb_invd_chunk plans for
-        assert _blocks(_mode_smem_bytes(p, "ChebInvd")) == st.CHEB_INVD_BLOCKS
+        assert st.march_runs(mode, p) == (mode in RUNS_MODES and p >= 3)
+        if mode in st.RUNS_BLOCKS and st.march_runs(mode, p):
+            assert blocks == st.RUNS_BLOCKS[mode][p]
+    assert not st.march_runs("MassStiff", p) and not st.march_runs("Mix", p)
+    assert _mode_smem_bytes(p, "MassStiff") == st.march_smem_bytes(p, st.MARCH_TILE[0], 1)
+    assert st.RUNS_BLOCKS.keys() == {"ChebInvd", "Apply"}
+    assert all(st.RUNS_BLOCKS[mode].keys() == {3, 4} for mode in st.RUNS_BLOCKS)
 
 
 @pytest.mark.parametrize("q, m", [(1, 255), (4, 191), (4, 255), (5, 255), (6, 255), (8, 191)])
@@ -425,37 +439,109 @@ def test_plan_covers_the_degree_sweeps_levels(q, m):
 CHEB_INVD_SHAPES = {"P18 slab": (1, 64, 127, 4, 4), "P20 r=5": (6, 127, 127, 4, 32),
                     "P17 r=5": (4, 127, 127, 4, 32), "P16 r=5": (4, 95, 95, 3, 8),
                     "P1 r=7": (4, 127, 127, 1, 16), "P6 slab": (1, 64, 127, 1, 2)}
+# K4's and K9a's launches (Apply), the same way: at p >= 3 the degree sweep's
+# levels (P20's 127 level, P17's and P19's 255 levels, P16's 191 and 95
+# levels) and both of P18's slabs (64 and 63 planes); at p = 1 and 2 P1's and
+# P15's finest levels and P6's first slab
+APPLY_SHAPES = {"P20 r=5": (6, 127, 127, 4, 32), "P17 r=6": (4, 255, 255, 4, 64),
+                "P19 r=6": (5, 255, 255, 4, 64), "P16 r=6": (4, 191, 191, 3, 32),
+                "P16 r=5": (4, 95, 95, 3, 8), "P18 slab": (1, 64, 127, 4, 4),
+                "P18 slab 2": (1, 63, 127, 4, 4), "P1 r=7": (4, 127, 127, 1, 16),
+                "P15 r=6": (4, 127, 127, 2, 16), "P6 slab": (1, 64, 127, 1, 2)}
 
 
-@pytest.mark.parametrize("where", sorted(CHEB_INVD_SHAPES))
-def test_cheb_invd_plan_covers_every_plane_once(where):
-    """K3's and K9c's plan (``_runs_plan``, mode ChebInvd): every plane of
-    every stage once, the sweep's chunk; at p >= 3 ``cheb_invd_chunk``, a
-    power of two up to MARCH_RUNS_MAX_CHUNK that gives every SM its two
-    resident blocks, and no other such chunk gives the busiest SM less
-    work; at p = 1 ``march_plan``'s chunk."""
-    q, nz, m, p, want = CHEB_INVD_SHAPES[where]
-    ops = level_ops(make_level(5 if p > 1 else 7, p), torch.float32, "cpu")
+def _runs_plan_holds(mode, q, nz, m, p, want):
+    """The plan of a ``mode`` launch (``_runs_plan``): every plane of every
+    stage once, the sweep's chunk ``want``; at p >= 3 ``runs_chunk``, a
+    power of two up to MARCH_RUNS_MAX_CHUNK that gives every SM the mode's
+    resident blocks (RUNS_BLOCKS), and no other such chunk gives the
+    busiest SM less work; at p <= 2 ``march_plan``'s chunk."""
+    ref = ((m + 1) // p).bit_length() - 1  # m = p 2^ref - 1
+    ops = level_ops(make_level(ref, p), torch.float32, "cpu")
     assert ops.m == m
-    (chunk,) = st._runs_plan(ops, q, nz, "ChebInvd")
+    sops = slab_ops(ops, 0, nz) if nz < m else ops
+    (chunk,) = st._runs_plan(sops, q, nz, mode)
     assert chunk == want
     seen = _covered(q, nz, m, st.MARCH_TILE[0], per_stage=True, max_chunk=chunk)
     assert seen == {(i, z): 1 for i in range(q) for z in range(nz)}
     if p < 3:
         assert chunk == st.march_plan(q, nz, m)[0]
         return
-    assert chunk == st.cheb_invd_chunk(q, nz, m, p)
-    cap = st.march_max_chunk("ChebInvd", p)
+    assert chunk == st.runs_chunk(mode, q, nz, m, p)
+    cap = st.march_max_chunk(mode, p)
     assert chunk & (chunk - 1) == 0 and chunk <= cap
     tiles = -(-m // st.MARCH_TILE[1]) * -(-m // st.MARCH_TILE[0])
+    resident = st.RUNS_BLOCKS[mode][p]
 
     def per_sm(c):  # the busiest SM's blocks
         return -(-tiles * q * -(-nz // c) // st.SMS)
 
-    assert per_sm(chunk) >= st.CHEB_INVD_BLOCKS
+    assert per_sm(chunk) >= resident
     for c in (2**k for k in range(8) if 2**k <= cap):
-        if per_sm(c) >= st.CHEB_INVD_BLOCKS:
+        if per_sm(c) >= resident:
             assert per_sm(c) * (c + 1) >= per_sm(chunk) * (chunk + 1), c
+
+
+@pytest.mark.parametrize("where", sorted(CHEB_INVD_SHAPES))
+def test_cheb_invd_plan_covers_every_plane_once(where):
+    """K3's and K9c's plan (mode ChebInvd, two blocks per SM in runs)."""
+    _runs_plan_holds("ChebInvd", *CHEB_INVD_SHAPES[where])
+
+
+@pytest.mark.parametrize("where", sorted(APPLY_SHAPES))
+def test_apply_plan_covers_every_plane_once(where):
+    """K4's and K9a's plan (mode Apply: three blocks per SM in runs at p = 3,
+    two at p = 4)."""
+    _runs_plan_holds("Apply", *APPLY_SHAPES[where])
+
+
+def _apply_launches() -> dict:
+    """(q, nz, m, p) of every K4 and K9a launch at p >= 3 of the kernels
+    phase (KERNEL_CASES, AMG_CASES, HALO_CASES: each slab of each space
+    split) and of the paths' V-cycles."""
+    shapes = {}
+    for dim, q, ref, p, names, _timed in chip_smoke.KERNEL_CASES:
+        if dim == 3 and p >= 3 and "stencil_apply" in names:
+            shapes[f"kernel q={q} r={ref} p={p}"] = (q, _m(ref, p), _m(ref, p), p)
+    for q, p, _ref, m in chip_smoke.AMG_CASES:
+        if p >= 3:
+            shapes[f"amg q={q} m={m} p={p}"] = (q, m, m, p)
+    for _q, ref, p, nsps, _timed in chip_smoke.HALO_CASES:
+        m = _m(ref, p)
+        for nsp in nsps:
+            for z0, z1 in z_partition(m, nsp):
+                if p >= 3:
+                    shapes[f"halo r={ref} p={p} {nsp} slabs, planes {z0}:{z1}"] = (1, z1 - z0, m, p)
+    for name, (_dim, cfg, n_levels) in chip_smoke.PATHS.items():
+        top, p = cfg["NRefinements"], cfg["FEDegree"]
+        for ref in range(top - n_levels + 1, top + 1):
+            m = _m(ref, p)
+            if p >= 3 and name in PATH_LANES:
+                shapes[f"{name} r={ref}"] = (PATH_LANES[name], m, m, p)
+            elif p >= 3 and name in MESH_LANES:
+                for z0, z1 in z_partition(m, 2):
+                    shapes[f"{name} r={ref} planes {z0}:{z1}"] = (MESH_LANES[name], z1 - z0, m, p)
+    return shapes
+
+
+APPLY_LAUNCHES = _apply_launches()
+
+
+@pytest.mark.parametrize("where", sorted(APPLY_LAUNCHES))
+def test_apply_runs_launches_cover_every_plane_once(where):
+    """Every K4 and K9a launch at p >= 3 (Apply in runs, ``runs_chunk``)
+    writes every plane of every stage once, in chunks of up to
+    MARCH_RUNS_MAX_CHUNK, and gives the busiest SM the mode's resident
+    blocks where one-plane chunks do."""
+    q, nz, m, p = APPLY_LAUNCHES[where]
+    chunk = st.runs_chunk("Apply", q, nz, m, p)
+    assert 1 <= chunk <= st.MARCH_RUNS_MAX_CHUNK[p]
+    seen = _covered(q, nz, m, st.MARCH_TILE[0], per_stage=True, max_chunk=chunk)
+    assert seen == {(i, z): 1 for i in range(q) for z in range(nz)}
+    tiles = -(-m // st.MARCH_TILE[1]) * -(-m // st.MARCH_TILE[0])
+    resident = st.RUNS_BLOCKS["Apply"][p]
+    if -(-tiles * q * nz // st.SMS) >= resident:
+        assert -(-tiles * q * -(-nz // chunk) // st.SMS) >= resident
 
 
 def test_cheb_invd_launch_arguments_in_runs(monkeypatch):
@@ -475,6 +561,34 @@ def test_cheb_invd_launch_arguments_in_runs(monkeypatch):
     assert a1[-2:] == (st._runs_plan(ops, q, m, "ChebInvd")[0], 4)
     assert a2[-4:] == (64, 0, st._runs_plan(sops, q, 64, "ChebInvd")[0], 4)
     assert a2[-2] != st.march_plan(q, 64, m)[0]
+
+
+@pytest.mark.parametrize("p", [1, 2, 3, 4])
+def test_apply_launch_arguments_in_runs(monkeypatch, p):
+    """K4 and K9a hand their entry points ``runs_chunk``'s chunk (mode
+    Apply) at p >= 3, and ``march_plan``'s at p <= 2; on P18's first slab
+    at p = 4 (64 of 127 planes) that is 4 planes, not ``march_plan``'s 2."""
+    q = 1
+    ops = level_ops(make_level(5, p), torch.float32, "cpu")
+    m = ops.m
+    nzl = z_partition(m, 2)[0][1]
+    sops = slab_ops(ops, 0, nzl)
+    a = torch.linspace(1.0, 2.0, q)
+    calls = _capture(monkeypatch)
+    st.stencil_apply(ops, a, 0.1, torch.zeros(q, m, m, m))
+    st.stencil_apply_halo(sops, a, 0.1, torch.zeros(q, nzl + 2 * p, m, m))
+    (n1, a1), (n2, a2) = calls
+    assert (n1, n2) == ("spirk_stencil_apply", "spirk_stencil_apply_halo")
+    for name, args in calls:
+        assert len(args) == len(build.SIGNATURES[name]) - 1
+    if p >= 3:
+        want = st.runs_chunk("Apply", q, m, m, p), st.runs_chunk("Apply", q, nzl, m, p)
+    else:
+        want = st.march_plan(q, m, m)[0], st.march_plan(q, nzl, m)[0]
+    assert a1[-4:] == (q, m, want[0], p)
+    assert a2[-6:] == (q, m, nzl, 0, want[1], p)
+    if p == 4:
+        assert (nzl, want[1], st.march_plan(q, nzl, m)[0]) == (64, 4, 2)
 
 
 # the profiler's names of the march's kernels (csrc march<P, Mode, ARM>, the
@@ -521,14 +635,17 @@ def test_every_k1_form_is_held_by_a_kernel_case(p):
     assert live <= held, sorted(live - held)
 
 
-# the dynamic shared memory of the Apply mode at p = 1-4 as ptxas reported it
-# on the H100 (March<P, Apply>::SMEM_FLOATS * 4, PERF.md section 6)
-APPLY_SMEM = {1: 37728, 2: 53504, 3: 72352, 4: 94464}
+# the dynamic shared memory of a one-ring march outside runs at p = 1-4 as
+# ptxas reported it on the H100 (March<P, MassStiff>::SMEM_FLOATS * 4, and
+# Apply's at p = 1-2; PERF.md section 6): the layout ``march_smem_bytes``
+# gives ``mix_tile``
+PER_POINT_SMEM = {1: 37728, 2: 53504, 3: 72352, 4: 94464}
 
 
-@pytest.mark.parametrize("p", sorted(APPLY_SMEM))
+@pytest.mark.parametrize("p", sorted(PER_POINT_SMEM))
 def test_march_smem_bytes_is_the_kernels_layout(p):
-    assert st.march_smem_bytes(p, st.MARCH_TILE[0], 1) == APPLY_SMEM[p]
+    assert st.march_smem_bytes(p, st.MARCH_TILE[0], 1) == PER_POINT_SMEM[p]
+    assert PER_POINT_SMEM[p] == MODE_SMEM["MassStiff", p]
 
 
 def _k_args(monkeypatch, fn, *args):
