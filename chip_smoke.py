@@ -83,8 +83,8 @@ Phases; any failure exits non-zero:
 3. kernels: the 2D kernels of P3 on a smooth field at its finest level,
    K3dg, K8, K4, K5 and K9b at P4's, K3 at P4's 127 level and K1 at P1's
    finest level, and at degrees 3 and 4 K3dg, K4 and K5 at P16's and
-   P17's finest levels, K3 one level down, K1 at P17's, its route at
-   P19's and K9b on P18's first slab (``smooth_bias``): each
+   P17's finest levels, K3 one level down, K1 at P16's and P17's, its
+   route at P19's and K9b on P18's first slab (``smooth_bias``): each
    kernel's mean error against the f64 plain version within SMOOTH_BIAS
    times its f32 plain version's (a rounding error that follows the field
    moves the solution); then
@@ -118,7 +118,8 @@ Phases; any failure exits non-zero:
    call), K2 and ms_mix_apply_split at P19's, K9c on P18's first slab and
    K3dg at P19's, K3 at P16's 95 and P17's 127 levels, K4 at P16's 191
    and P17's and P19's 255 levels, K9a and K9b on P18's first slab, K5 at
-   P20's vmult and K1 at P16's finest level: device time per
+   P20's vmult and at P16's shape (p = 3), K1 at P16's finest level and
+   its route there (K2 and ms_mix_apply_split): device time per
    launch from
    ``torch.profiler`` (only sessions in which every timed launch left its
    record, ``profiler_session``), time per call from CUDA events in turns (kernel,
@@ -127,9 +128,10 @@ Phases; any failure exits non-zero:
    but a turn that reads below the DRAM bound (``sub_bound``) is printed as
    dropped and left out, and a case whose every turn drops fails; the
    least of the kept turns is printed with their median;
-3c. K3dg's, K3's and K4's diagnostic arms (``measure_arms``, ARM_CASES:
-   K3dg at P4's 255 level at p = 1, P16's 191 and P17's 255 levels, K3 at
-   P20's and P17's 127 levels, K4 at P20's 127 and P17's 255 levels): the
+3c. K3dg's, K3's, K4's, K5's and K1's diagnostic arms (``measure_arms``,
+   ARM_CASES: K3dg at P4's 255 level at p = 1, P16's 191 and P17's 255
+   levels, K3 at P20's and P17's 127 levels, K4 at P20's 127 and P17's 255
+   levels, K5 at P20's vmult, K1 at P16's finest level): the
    kernel, its passes alone on resident planes and its copies alone,
    device time L2-cold; numbers, printed and kept in a line of their own
    (``march_arms``) before the kernels line, not gates;
@@ -575,7 +577,7 @@ MEASURE_CASES = [
     ("cheb_iter", 3, 4, 4, 5, 4),
     # K4 at P17's and P19's 255 levels (q=4, 5) and P16's 191 level (q=4,
     # Q3); K9a on P18's first slab; K5 at P20's vmult (six lanes, Q4) and
-    # K9b on P18's first slab; K1 at P16's finest level (Mix<16, 4>, Q3)
+    # K9b on P18's first slab; K1 at P16's finest level (Q3)
     ("stencil_apply", 3, 4, 4, 6, 4),
     ("stencil_apply", 3, P19_STAGES, P19_STAGES, 6, 4),
     ("stencil_apply", 3, 4, 4, 6, 3),
@@ -583,6 +585,11 @@ MEASURE_CASES = [
     ("mass_stiffness_apply", 3, 6, 6, 5, 4),
     ("mass_stiffness_apply_halo", 3, 1, 1, 5, 4),
     ("ms_mix_apply", 3, 4, 4, 6, 3),
+    # K1's route at P16's shape (K2, then ms_mix_apply_split) beside its Mix
+    # form, and K5 at the same shape (p = 3)
+    ("stage_mix", 3, 4, 4, 6, 3),
+    ("ms_mix_apply_split", 3, 4, 4, 6, 3),
+    ("mass_stiffness_apply", 3, 4, 4, 6, 3),
 ]
 # the device kernels of a LAUNCHES key, by name in the profiler (default the
 # key itself): the z march of each mode and its pair form (csrc/march.cuh),
@@ -1534,42 +1541,49 @@ def measure_kernels(device, cases=None) -> list[dict]:
 # the diagnostic arms (``measure_arms``): (LAUNCHES key, q, refinement,
 # degree) — K3dg at P4's 255 level at p = 1 (six lanes), P16's 191 and P17's
 # 255 levels (q=4); K3 at P20's 127 level (six lanes, Q4) and P17's (q=4); K4
-# at P20's 127 level and P17's 255 level
+# at P20's 127 level and P17's 255 level; K5 at P20's vmult (six lanes, Q4);
+# K1 at P16's finest level (q=4, Q3)
 ARM_CASES = [("cheb_iter_dg", 6, 8, 1), ("cheb_iter_dg", 4, 6, 3), ("cheb_iter_dg", 4, 6, 4),
              ("cheb_iter", 6, 5, 4), ("cheb_iter", 4, 5, 4),
-             ("stencil_apply", 6, 5, 4), ("stencil_apply", 4, 6, 4)]
+             ("stencil_apply", 6, 5, 4), ("stencil_apply", 4, 6, 4),
+             ("mass_stiffness_apply", 6, 5, 4), ("ms_mix_apply", 4, 6, 3)]
 ARMS = {"kernel": 0, "passes only": 1, "copies only": 2}
 # per key: the kernel's name, its arms' entry point (csrc/cheb_iter.cu,
-# csrc/stencil_apply.cu), its march mode and its outputs
-ARM_ENTRIES = {"cheb_iter": ("K3", "spirk_cheb_iter_arm", "ChebInvd", 3),
-               "cheb_iter_dg": ("K3dg", "spirk_cheb_iter_dg_arm", "ChebDiag", 3),
-               "stencil_apply": ("K4", "spirk_stencil_apply_arm", "Apply", 1)}
+# csrc/stencil_apply.cu, csrc/mass_stiffness_apply.cu, csrc/ms_mix_apply.cu)
+# and its outputs
+ARM_ENTRIES = {"cheb_iter": ("K3", "spirk_cheb_iter_arm", 3),
+               "cheb_iter_dg": ("K3dg", "spirk_cheb_iter_dg_arm", 3),
+               "stencil_apply": ("K4", "spirk_stencil_apply_arm", 1),
+               "mass_stiffness_apply": ("K5", "spirk_mass_stiffness_apply_arm", 2),
+               "ms_mix_apply": ("K1", "spirk_ms_mix_apply_arm", 1)}
 
 
-def march_arm(key: str, ops, a, b, c1, c2, fields, arm: int):
-    """K3's (``key`` "cheb_iter": ``fields`` d, r, x, D^-1), K3dg's
-    ("cheb_iter_dg": d, r, x) or K4's ("stencil_apply": u) march in one of
-    its diagnostic arms (csrc/cheb_iter.cu::spirk_cheb_iter_arm,
-    spirk_cheb_iter_dg_arm, csrc/stencil_apply.cu::spirk_stencil_apply_arm;
-    0: the kernel itself, through its wrapper): 1 the passes and the update
-    on resident planes, no copy and no store; 2 the copies and stores alone
-    (r' = r, d' = d, x' = x; K4: out = u); on the wrapper's plan."""
+def march_arm(key: str, call, arm: int):
+    """``call()``, a call of the wrapper ``key`` (K3, K3dg, K4, K5 or K1 on
+    its Mix form), in one of the kernel's diagnostic arms (ARM_ENTRIES; 0:
+    the kernel itself): 1 the passes and the update on resident planes, no
+    copy and no store; 2 the copies and stores alone (r' = r, d' = d, x' =
+    x; K4, K5, K1: every output the operand).  The wrapper's launch goes to
+    the arms' entry point with the same arguments (so on the wrapper's plan
+    and tables) and the arm; its LAUNCHES count is left as it was."""
     from dealii_spirk_tpu_torch.ops.cuda import stencil as st
 
-    _name, entry, mode, n_out = ARM_ENTRIES[key]
     if arm == 0:
-        return getattr(st, key)(ops, a, b, *((c1, c2) if n_out == 3 else ()), *fields)
-    d = fields[0]
-    q, m = d.shape[0], ops.m
-    outs = [torch.empty_like(d) for _ in range(n_out)]
-    tabs = [st._stage_coefs(t, q, d.device) for t in (a, c1, c2)[: 1 + 2 * (n_out == 3)]]
-    ins = (*fields, ops.mass_diag, ops.stiff_diag) if key == "cheb_iter_dg" else fields
-    st._launch_raw(
-        entry, d.device,
-        *(t.data_ptr() for t in (*ins, *outs, ops.mass_band, ops.stiff_band, tabs[0])),
-        float(b), *(t.data_ptr() for t in tabs[1:]), q, m, *st._runs_plan(ops, q, m, mode),
-        ops.p, arm)
-    return tuple(outs)
+        return call()
+    entry, kernel = ARM_ENTRIES[key][1], "spirk_" + key
+    real, count = st._launch_raw, st.LAUNCHES[key]
+
+    def launch(name, device, *args):
+        if name != kernel:
+            raise RuntimeError(f"{key}'s arms take one launch of {kernel}, not {name}")
+        real(entry, device, *args, arm)
+
+    st._launch_raw = launch
+    try:
+        return call()
+    finally:
+        st._launch_raw = real
+        st.LAUNCHES[key] = count
 
 
 def measure_arms(device, keys=tuple(ARM_ENTRIES)) -> list[dict]:
@@ -1580,17 +1594,29 @@ def measure_arms(device, keys=tuple(ARM_ENTRIES)) -> list[dict]:
     no DRAM traffic, the copies-only arm what the memory pipeline takes
     with no pass; numbers, not gates."""
     from dealii_spirk_tpu_torch.fem.grid import make_level
+    from dealii_spirk_tpu_torch.ops.cuda import stencil as st
     from dealii_spirk_tpu_torch.ops.mass_laplace import level_ops
 
     out = []
     for key, q, ref, p in ARM_CASES:
-        if key not in keys:
-            continue
+        if key not in keys or (key == "ms_mix_apply" and not st.mix_tile(q, p)):
+            continue  # (K1's route has no arms)
         ops = level_ops(make_level(ref, p), torch.float32, device)
         m = ops.m
         gen = device_generator(device, 7 * ref + p)
         a, c1, c2 = (torch.linspace(lo, lo + 1, q, device=device) for lo in (0.5, 0.2, 0.1))
-        n_fields = PASSES[key] - ARM_ENTRIES[key][3]  # d (K4: u), r, x and K3's D^-1 (0.5 .. 1.5)
+        ainv = torch.linspace(-1.0, 1.0, q * q, device=device).reshape(q, q)
+        wrapper = getattr(st, key)
+
+        def run(*f):  # the wrapper of ``key`` on the fields f
+            if key == "mass_stiffness_apply":
+                return wrapper(ops, *f)
+            if key == "ms_mix_apply":
+                return wrapper(ops, ainv, 0.1, *f)
+            return wrapper(ops, a, 0.1, *((c1, c2) if key != "stencil_apply" else ()), *f)
+
+        # d (K4, K5, K1: u), r, x and K3's D^-1 (0.5 .. 1.5)
+        n_fields = PASSES[key] - ARM_ENTRIES[key][2]
         n_sets = max(2, -(-2 * L2_CACHE_BYTES // (4 * PASSES[key] * q * m**3)))
         sets = [tuple(uniform_field((q, m, m, m), -1.0, 1.0, device, gen).abs_().add_(0.5)
                       if i == 3 else uniform_field((q, m, m, m), -1.0, 1.0, device, gen)
@@ -1599,8 +1625,7 @@ def measure_arms(device, keys=tuple(ARM_ENTRIES)) -> list[dict]:
         row = {"name": ARM_ENTRIES[key][0], "at": f"3D p={p} m={m} q={q}", "bound_ms": bnd[0]}
         for _turn in range(TURNS):
             for name, arm in ARMS.items():
-                call = _rotating(lambda *f, arm=arm: march_arm(key, ops, a, 0.1, c1, c2, f, arm),
-                                 sets)
+                call = _rotating(lambda *f, arm=arm: march_arm(key, lambda: run(*f), arm), sets)
                 ms = timed_calls(call)[0]
                 dev = device_ms(call, DEVICE_NAMES[key])[0]
                 best = row.setdefault(name, {"cold_ms": ms, "cold_device_ms": dev})
@@ -1716,14 +1741,16 @@ def smooth_cases_3d(device):
 def smooth_cases_degree(device):
     """The degree sweep's kernels on smooth fields: K3dg, K4 and K5 at P16's
     191 and P17's 255 levels (q=4, Q3 and Q4), K3 one level down, K1 at
-    P17's finest level, K1's route K2 + ms_mix_apply_split at P19's, and
-    K9b on the first slab of P18's finest level (4-plane halos)."""
+    P16's and P17's finest levels, K1's route K2 + ms_mix_apply_split at
+    P19's, and K9b on the first slab of P18's finest level (4-plane
+    halos)."""
     for path in ("P16", "P17"):
         cfg = PATHS[path][1]
         q, p, ref = cfg["IRKStages"], cfg["FEDegree"], cfg["NRefinements"]
         yield from _smooth_cases_march(device, ref, q, p, (
             "cheb_iter_dg", "stencil_apply", "mass_stiffness_apply"))
         yield from _smooth_cases_k3(device, ref - 1, q, p)
+    yield from _smooth_cases_k1(device, "P16")
     yield from _smooth_cases_k1(device, "P17")
     yield from _smooth_cases_k1(device, "P19")
     cfg = PATHS["P18"][1]

@@ -22,15 +22,15 @@
 // output tile (Mix: every stage's, TY x 64) and marches over a chunk of z
 // planes (at most March::ZC; the wrapper picks the chunk per launch so that
 // a launch has at least two blocks per SM where the field allows,
-// ops/cuda/stencil.py::march_plan; K3, K9c, K4 and K9a at p >= 3 so that the
-// busiest SM has the least work, runs_chunk).  It keeps a ring of 2p + 2 haloed
-// planes of each operand in shared memory (MixSplit two, Mix one per
-// stage): the 2p + 1 that the z pass of the current plane reads and the
-// next one, which cp.async copies in while the block computes the current
-// plane, together with that plane's per-point fields (r and x, and D^-1
-// for ChebInvd; none for the others) into per-thread slots.  So each
-// operand plane is read once per tile column (plus p planes at each chunk
-// end) and no block waits on its own loads before it computes.  The copies
+// ops/cuda/stencil.py::march_plan; K3, K9c, K4, K9a, K5, K9b and K1 in runs
+// so that the busiest SM has the least work, runs_chunk).  It keeps a ring
+// of 2p + 2 haloed planes of each operand in shared memory (MixSplit two,
+// Mix one per stage): the 2p + 1 that the z pass of the current plane
+// reads and the next one, which cp.async copies in while the block
+// computes the current plane, together with that plane's per-point fields
+// (r and x, and D^-1 for ChebInvd; none for the others) into per-thread
+// slots.  So each operand plane is read once per tile column (plus p planes
+// at each chunk end) and no block waits on its own loads before it computes.  The copies
 // are 4-byte cp.async: a row of a field is m * 4 bytes (1020 at m = 255), so
 // neither TMA nor 16-byte copies fit the compact layout.  The domain halo is
 // the zero-fill form (source size 0), so the loader has no masked branch.
@@ -47,9 +47,10 @@
 // copies: at P17's shape (p = 4) K3dg's passes alone took 0.70 ms and its
 // copies alone 0.74, against 1.11 for the kernel and a DRAM bound of 0.48
 // (PERF.md).  So K3, K3dg, K9c, K9d, MixSplit and, since the same passes held
-// K4 at 0.17 of its bound at p = 4, Apply (K4, K9a) at p >= 3 (March::RUNS)
-// take the z pass over groups of 4 adjacent points in 16-byte loads (on the
-// H100 2.7-3.6% off each at p = 4 against z_sums per point, PERF.md), the y
+// K4 at 0.17 of its bound at p = 4, Apply (K4, K9a) and MassStiff (K5, K9b)
+// at p >= 3, and K1's Mix<16, 4> at p = 3 (March::RUNS) take the z pass over
+// groups of 4 adjacent points in 16-byte loads (on the H100 2.7-3.6% off
+// each at p = 4 against z_sums per point, PERF.md), the y
 // pass in runs of 4 tile rows of a column summed from the 4 + 2p entries
 // read once (y_run), each thread one run (the last 2p columns a row each),
 // and chunks of up to 32 (p = 3) or 64 (p = 4) planes.  Every point keeps its
@@ -116,7 +117,8 @@ struct March {
   static constexpr int PLANE = HY * HX;  // one haloed plane of an operand
   static constexpr bool DIAG = std::is_same<Mode, ChebDiag>::value;
   static constexpr bool MIX = Mode::RINGS == 0;
-  // K3, K3dg, K9c, K9d, K4, K9a and K1's split march at p >= 3 (RUNS): the z pass
+  // K3, K3dg, K9c, K9d, K4, K9a, K5, K9b and K1's split march at p >= 3, and K1
+  // on the 16-row tile (Mix<16, 4>) at p = 3 (RUNS): the z pass
   // over groups of 4 adjacent points in 16-byte loads and stores (z_pass),
   // the y pass in runs (y_run: a thread sums RY tile rows of one column from
   // registers, its rows' weights in 16-byte loads of [mass, stiff][row][k]
@@ -126,9 +128,11 @@ struct March {
   // MARCH_RUNS_MAX_CHUNK); the other modes and degrees keep z_sums and
   // y_sums per point over [mass, stiff][k][row] and chunks of MZC
   static constexpr bool INVD = std::is_same<Mode, ChebInvd>::value;
-  static constexpr bool RUNS = (DIAG || INVD || std::is_same<Mode, MixSplit>::value ||
-                                std::is_same<Mode, Apply>::value) &&
-                               P >= 3;
+  static constexpr bool RUNS = ((DIAG || INVD || std::is_same<Mode, MixSplit>::value ||
+                                 std::is_same<Mode, Apply>::value ||
+                                 std::is_same<Mode, MassStiff>::value) &&
+                                P >= 3) ||
+                               (MIX && TY == 16 && P == 3);
   // ChebInvd in runs: the per-point fields of one plane, not two (the
   // header; stencil.py::RUNS_BLOCKS)
   static constexpr bool RX1 = INVD && RUNS;
@@ -155,14 +159,15 @@ struct March {
   static_assert(!RUNS || (Mode::RINGS * RING * PLANE + 2 * PLANE + 2 * YP + RX + ZW) % 4 == 0,
                 "the y band rows must be 16-byte aligned");
   static constexpr int SMEM_FLOATS = (MIX ? 1 : Mode::RINGS) * RING * PLANE + REST;
-  static_assert(SMEM_FLOATS * 4 <= 232448, "the march does not fit a block's shared memory");
   // resident blocks per SM that the shared memory allows (228 KB, 1 KB of
   // it reserved per block), at most 4, and so the register budget ptxas is
-  // held to; Mix (q rings) is held to 2
-  static constexpr int BLOCKS = MIX ? 2
-                                : 233472 / (SMEM_FLOATS * 4 + 1024) < 4
-                                    ? 233472 / (SMEM_FLOATS * 4 + 1024)
-                                    : 4;
+  // held to.  Mix per point is held to 2; Mix in runs counts the rings of
+  // its QA stages (Mix<16, 4> at p = 3: 221,216 B, one block per SM)
+  static constexpr int SM_FLOATS =
+      SMEM_FLOATS + (MIX && RUNS ? (Mode::ACC - 1) * RING * PLANE : 0);
+  static_assert(SM_FLOATS * 4 <= 232448, "the march does not fit a block's shared memory");
+  static constexpr int FIT = 233472 / (SM_FLOATS * 4 + 1024);
+  static constexpr int BLOCKS = MIX && !RUNS ? 2 : FIT < 4 ? FIT : 4;
 };
 
 // A launch's arguments; the fields a mode does not read may be null.
@@ -353,12 +358,15 @@ __device__ __forceinline__ float cheb_d(float c1, float d, float c2, float z) {
   return fmaf(c1, d, c2 * z);
 }
 
-// ARM (a diagnostic of ChebDiag, ChebInvd and Apply: cheb_iter.cu::
-// spirk_cheb_iter_dg_arm, spirk_cheb_iter_arm, stencil_apply.cu::
-// spirk_stencil_apply_arm): 0 the kernel; PASSES the three passes and the
-// update on planes already resident in shared memory (zeros), with no
-// cp.async and no global store; COPIES the copies and stores alone (r' = r,
-// d' = d at the centre, x' = x; Apply: out = d at the centre), no pass
+// ARM (a diagnostic of ChebDiag, ChebInvd, Apply, MassStiff and Mix<16, 4>:
+// cheb_iter.cu::spirk_cheb_iter_dg_arm, spirk_cheb_iter_arm,
+// stencil_apply.cu::spirk_stencil_apply_arm, mass_stiffness_apply.cu::
+// spirk_mass_stiffness_apply_arm, ms_mix_apply.cu::spirk_ms_mix_apply_arm):
+// 0 the kernel; PASSES the three passes and the update on planes already
+// resident in shared memory (zeros), with no cp.async and no global store;
+// COPIES the copies and stores alone (r' = r, d' = d at the centre, x' = x;
+// Apply: out = d at the centre; MassStiff: both outputs d at the centre;
+// Mix: out_i = d_i at the centre), no pass
 constexpr int PASSES = 1, COPIES = 2;
 
 // grid (ceil(m / MX), ceil(m / TY), ceil(zs.nz / chunk) per stage, times q
@@ -531,6 +539,9 @@ march(const MarchArgs g) {
           if constexpr (SPLIT) {
             e[c] = zm[c] + b * uk[c];
             f[c] = b * um[c];
+          } else if constexpr (MS || MIX) {
+            e[c] = zk[c];
+            f[c] = zm[c];
           } else {
             e[c] = shifted_e(a, b, zm[c], zk[c]);
             f[c] = b * zm[c];
@@ -578,7 +589,7 @@ march(const MarchArgs g) {
   // x pass and the mode's update at this thread's points of plane k (Mix:
   // of input stage j)
   auto x_pass = [&](int k, int j) {
-    const float* centre = ring + ((k + P) % RING) * PLANE + P * HX + P;
+    const float* centre = ring + (j * RING + (k + P) % RING) * PLANE + P * HX + P;
     const float* fk = rx + (G::RX1 ? 0 : (k & 1) * G::RXP) + tid;
     const long long base = oq + (long long)(z0 + k) * mm;
     float cm[NQ];  // Mix: A^-1[i, j] for every output stage i
@@ -596,13 +607,21 @@ march(const MarchArgs g) {
         float mu;  // MassStiff, Mix: M d
         const float ad = x_sums<NB, MS || MIX>(C, D, c0, xwm, xwk, mu);
         const long long gi = base + (long long)gy * m + gx;
-        if constexpr (MIX) {
+        if constexpr (MIX && ARM == COPIES) {
+#pragma unroll
+          for (int i = 0; i < NQ; ++i)
+            if (i == j) acc[i][s] = centre[c0];
+        } else if constexpr (MIX) {
 #pragma unroll
           for (int i = 0; i < NQ; ++i) {
             acc[i][s] = fmaf(cm[i], mu, acc[i][s]);
             if (i == j) acc[i][s] = fmaf(tj, ad, acc[i][s]);
           }
+        } else if constexpr (MS && ARM == COPIES) {
+          g.out[gi] = centre[c0];
+          g.d_out[gi] = centre[c0];
         } else if constexpr (MS) {
+          if (ARM == PASSES && zs.nz > 0) continue;  // (always): no store
           g.out[gi] = mu;
           g.d_out[gi] = ad;
         } else if constexpr (NF == 0 && ARM == COPIES) {
@@ -640,7 +659,8 @@ march(const MarchArgs g) {
       const bool in = gy < m && gx < m;
 #pragma unroll
       for (int i = 0; i < NQ; ++i) {
-        if (in && i < g.q) g.out[i * zs.out_stride(m) + base + (long long)gy * m + gx] = acc[i][s];
+        if (in && i < g.q && !(ARM == PASSES && zs.nz > 0))  // PASSES: no store
+          g.out[i * zs.out_stride(m) + base + (long long)gy * m + gx] = acc[i][s];
         acc[i][s] = 0.f;
       }
     }
@@ -667,9 +687,9 @@ march(const MarchArgs g) {
       // that precedes the x pass, C, D by the x pass before the next stage's
       // first barrier, so two barriers per stage suffice
       for (int j = 0; j < g.q; ++j) {
-        z_pass(k, j);
+        if constexpr (ARM != COPIES) z_pass(k, j);
         __syncthreads();
-        y_pass();
+        if constexpr (ARM != COPIES) y_pass();
         __syncthreads();
         x_pass(k, j);
       }

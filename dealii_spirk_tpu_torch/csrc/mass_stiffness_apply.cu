@@ -15,7 +15,11 @@
 // haloed u planes; z pass E = Kz u, F = Mz u; y pass C = My E + Ky F,
 // D = My F; x pass K u = Mx C + Kx D and M u = Mx D, each sum of mass taps
 // apart from the stiffness taps' (the earlier tile kernel added
-// My Zk + Ky Zm and Mx Ck + Kx Cm in one accumulator each).  Bound on the
+// My Zk + Ky Zm and Mx Ck + Kx Cm in one accumulator each).  At p >= 3 the
+// z and y passes run in runs (march.cuh March::RUNS: 4-point groups, 4-row
+// runs from registers, chunks of up to 32 / 64 planes from
+// ops/cuda/stencil.py::runs_chunk), as Apply's do; each point keeps its
+// taps, weights and order of sums, so K5 keeps its bytes.  Bound on the
 // H100: DRAM (one field read, two written, about 60 flops per point at
 // p = 1).
 //
@@ -68,6 +72,7 @@ mass_stiffness_2d_kernel(const float* __restrict__ u, float* __restrict__ mu_out
   }
 }
 
+template <int ARM = 0>
 int mass_stiffness_entry(const float* u, float* mu, float* ku, const float* mband,
                          const float* kband, int q, int m, ZSlab zs, int chunk, int p,
                          void* stream) {
@@ -80,7 +85,7 @@ int mass_stiffness_entry(const float* u, float* mu, float* ku, const float* mban
   g.m = m;
   g.chunk = chunk;
   g.zs = zs;
-  return march_entry<MassStiff>(g, q, p, stream);
+  return march_entry<MassStiff, ARM>(g, q, p, stream);
 }
 
 template <int P>
@@ -112,6 +117,23 @@ extern "C" int spirk_mass_stiffness_apply_halo(const float* u, float* mu, float*
                                                int p, void* stream) {
   return spirk::mass_stiffness_entry(u, mu, ku, mband, kband, q, m,
                                      spirk::ZSlab{nzl, p, z_off}, chunk, p, stream);
+}
+
+// K5's diagnostic arms (march.cuh ARM; not a kernel of any path, and no
+// LAUNCHES count): arm 1 the passes alone on resident planes, arm 2 the
+// copies and stores alone (M u = K u = u); the arguments of
+// spirk_mass_stiffness_apply, then arm
+extern "C" int spirk_mass_stiffness_apply_arm(const float* u, float* mu, float* ku,
+                                              const float* mband, const float* kband, int q,
+                                              int m, int chunk, int p, int arm, void* stream) {
+  const spirk::ZSlab zs = spirk::whole_field(m);
+  if (arm == spirk::PASSES)
+    return spirk::mass_stiffness_entry<spirk::PASSES>(u, mu, ku, mband, kband, q, m, zs, chunk,
+                                                      p, stream);
+  if (arm == spirk::COPIES)
+    return spirk::mass_stiffness_entry<spirk::COPIES>(u, mu, ku, mband, kband, q, m, zs, chunk,
+                                                      p, stream);
+  return cudaErrorInvalidValue;
 }
 
 extern "C" int spirk_mass_stiffness_apply_2d(const float* u, float* mu, float* ku,

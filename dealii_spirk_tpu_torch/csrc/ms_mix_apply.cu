@@ -18,7 +18,11 @@
 // once every stage is in.  The q rings set the block's shared memory, so the
 // tile height TY (16 or 8) is the launch plan's choice per (p, q)
 // (ops/cuda/stencil.py::mix_tile); QMAX sums live in registers only on the
-// 8-row tile (2 output points per thread), so above 4 stages TY is 8.
+// 8-row tile (2 output points per thread), so above 4 stages TY is 8.  On
+// the 16-row tile at p = 3 (P16's K1) the z and y passes of each stage run
+// in runs (march.cuh March::RUNS), one block per SM (its four rings take
+// 221,216 B), chunks from stencil.py::runs_chunk counted without q; each
+// point keeps its taps, weights and order of sums, so K1 keeps its bytes.
 //
 // Where no tile height fits the q rings (p = 3 with q >= 7), and at p = 4
 // wherever no tile lets two blocks share an SM (q >= 3: one Mix<8, 4> block
@@ -48,6 +52,20 @@ MarchArgs mix_args(const float* d, float* out, const float* mband, const float* 
   return g;
 }
 
+// the Mix form of q stages on the ty-row tile; the arms (ARM > 0) only on
+// the 16-row tile of up to 4 stages
+template <int ARM = 0>
+int mix_entry(const MarchArgs& g, int q, int ty, int p, void* stream) {
+  if (q < 1 || q > QMAX) return cudaErrorInvalidValue;
+  // the sums a thread keeps per output point: 4, or QMAX on the 8-row tile
+  if (q <= 4 && ty == 16) return march_entry<Mix<16, 4>, ARM>(g, q, p, stream);
+  if constexpr (ARM == 0) {
+    if (q <= 4 && ty == 8) return march_entry<Mix<8, 4>>(g, q, p, stream);
+    if (ty == 8) return march_entry<Mix<8, QMAX>>(g, q, p, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace spirk
 
 // mw: (q + 1, q) row-major, rows 0..q-1 Ainv, row q tau per stage; ty: the
@@ -55,13 +73,22 @@ MarchArgs mix_args(const float* d, float* out, const float* mband, const float* 
 extern "C" int spirk_ms_mix_apply(const float* u, float* out, const float* mband,
                                   const float* kband, const float* mw, int q, int m, int ty,
                                   int chunk, int p, void* stream) {
-  if (q < 1 || q > spirk::QMAX) return cudaErrorInvalidValue;
   spirk::MarchArgs g = spirk::mix_args(u, out, mband, kband, m, chunk);
   g.mw = mw;
-  // the sums a thread keeps per output point: 4, or QMAX on the 8-row tile
-  if (q <= 4 && ty == 16) return spirk::march_entry<spirk::Mix<16, 4>>(g, q, p, stream);
-  if (q <= 4 && ty == 8) return spirk::march_entry<spirk::Mix<8, 4>>(g, q, p, stream);
-  if (ty == 8) return spirk::march_entry<spirk::Mix<8, spirk::QMAX>>(g, q, p, stream);
+  return spirk::mix_entry(g, q, ty, p, stream);
+}
+
+// K1's diagnostic arms on the 16-row tile (march.cuh ARM; not a kernel of
+// any path, and no LAUNCHES count): arm 1 the passes alone on resident
+// planes, arm 2 the copies and stores alone (out = u); the arguments of
+// spirk_ms_mix_apply, then arm
+extern "C" int spirk_ms_mix_apply_arm(const float* u, float* out, const float* mband,
+                                      const float* kband, const float* mw, int q, int m, int ty,
+                                      int chunk, int p, int arm, void* stream) {
+  spirk::MarchArgs g = spirk::mix_args(u, out, mband, kband, m, chunk);
+  g.mw = mw;
+  if (arm == spirk::PASSES) return spirk::mix_entry<spirk::PASSES>(g, q, ty, p, stream);
+  if (arm == spirk::COPIES) return spirk::mix_entry<spirk::COPIES>(g, q, ty, p, stream);
   return cudaErrorInvalidValue;
 }
 

@@ -63,13 +63,13 @@ SIGNATURES = {
     "spirk_stage_mix": (_P, _P, _P, _I, _I, ctypes.c_longlong, _P),
 }
 
-# diagnostics that no path launches (no LAUNCHES count): K3's, K3dg's and
-# K4's arms, the arguments of spirk_cheb_iter(_dg) or spirk_stencil_apply
-# with the arm before the stream
+# diagnostics that no path launches (no LAUNCHES count): the arms of K3,
+# K3dg, K4, K5 and K1, each the arguments of its kernel's entry point with
+# the arm before the stream
 DIAGNOSTICS = {
-    "spirk_cheb_iter_arm": SIGNATURES["spirk_cheb_iter"][:-1] + (_I, _P),
-    "spirk_cheb_iter_dg_arm": SIGNATURES["spirk_cheb_iter_dg"][:-1] + (_I, _P),
-    "spirk_stencil_apply_arm": SIGNATURES["spirk_stencil_apply"][:-1] + (_I, _P),
+    name + "_arm": SIGNATURES[name][:-1] + (_I, _P)
+    for name in ("spirk_cheb_iter", "spirk_cheb_iter_dg", "spirk_stencil_apply",
+                 "spirk_mass_stiffness_apply", "spirk_ms_mix_apply")
 }
 
 _lib: ctypes.CDLL | None = None

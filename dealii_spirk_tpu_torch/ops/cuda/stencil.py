@@ -21,8 +21,9 @@ shared memory or registers so that it reads each input about once from
 DRAM (halo re-reads come mostly from L2) and writes each output once.  The
 3D kernels (K1, K3, K3dg, K4, K5, K8 and the slab forms) are one z march
 (``csrc/march.cuh``): a block marches over a chunk of z planes of one
-stage's (y, x) tile (K1: of every stage's), ``march_plan`` picks the chunk
-per launch, ``mix_tile`` K1's tile height and ``pair_tile`` K8's.
+stage's (y, x) tile (K1: of every stage's), ``march_plan`` (``runs_chunk``
+for the modes whose passes run in runs) picks the chunk per launch,
+``mix_plan`` K1's tile height and chunk and ``pair_tile`` K8's.
 
 Wrappers and their ``LAUNCHES`` keys (one per CUDA entry point; a 2D
 block counts under ``<key>_2d``), with the Pallas kernels they replace
@@ -81,8 +82,9 @@ QMAX = 8  # most stages the stage-coupled kernels hold (csrc/common.cuh)
 # have at least: two per SM of the H100 (132 SMs)
 MARCH_TILE = (16, 64)
 MARCH_MAX_CHUNK = 16
-# the most planes a block of K3, K3dg, K9c, K9d, K4, K9a or the split march
-# marches at p = 3 and 4 (csrc March::ZC, ``march_runs``): a chunk reads the
+# the most planes a block of K3, K3dg, K9c, K9d, K4, K9a, K5, K9b or the
+# split march marches at p = 3 and 4, and of K1 on the 16-row tile at p = 3
+# (csrc March::ZC, ``march_runs``): a chunk reads the
 # 2p-plane z halo once, so chunks of 32 took K3dg at P17's shape from 1.0203 to 0.9647 ms on
 # the H100 and chunks of 64 from 0.9210 to 0.8996 ms; at P16's (p = 3, m =
 # 191) chunks of 64 leave 432 blocks, 1.6 waves of two per SM, and took
@@ -90,11 +92,13 @@ MARCH_MAX_CHUNK = 16
 MARCH_RUNS_MAX_CHUNK = {3: 32, 4: 64}
 SMS = 132  # the H100's streaming multiprocessors
 MARCH_MIN_BLOCKS = 2 * SMS
-# the blocks that one SM holds of the modes in runs (p >= 3) whose launches
-# plan their chunks by the busiest SM's work (``runs_chunk``), per degree:
-# csrc March<P, Mode>::BLOCKS — ChebInvd (K3, K9c) 85,664 / 110,592 B of
-# shared memory at p = 3 / 4, Apply (K4, K9a) 73,376 / 98,304 B
-RUNS_BLOCKS = {"ChebInvd": {3: 2, 4: 2}, "Apply": {3: 3, 4: 2}}
+# the blocks that one SM holds of the modes in runs whose launches plan
+# their chunks by the busiest SM's work (``runs_chunk``), per degree: csrc
+# March<P, Mode>::BLOCKS — ChebInvd (K3, K9c) 85,664 / 110,592 B of shared
+# memory at p = 3 / 4, Apply (K4, K9a) and MassStiff (K5, K9b) 73,376 /
+# 98,304 B, Mix (K1 on the 16-row tile, p = 3) 221,216 B with four rings
+RUNS_BLOCKS = {"ChebInvd": {3: 2, 4: 2}, "Apply": {3: 3, 4: 2}, "MassStiff": {3: 3, 4: 2},
+               "Mix": {3: 1}}
 # K8's blocks run stage 1 on 2p more planes per chunk: at P4's 255 level
 # chunks of 32 planes ran 3% faster than chunks of 16 on the H100 (csrc
 # PAIR_MZC, PERF.md)
@@ -318,30 +322,36 @@ def march_plan(q: int, nz: int, m: int, ty: int = MARCH_TILE[0],
     return chunk, (tiles[0], tiles[1], lanes * -(-nz // chunk))
 
 
-def march_runs(mode: str, p: int) -> bool:
+def march_runs(mode: str, p: int, ty: int = MARCH_TILE[0]) -> bool:
     """Whether the mode's passes run in runs (csrc March::RUNS: K3, K3dg,
-    K9c, K9d, K4, K9a (Apply) and K1's split march at p >= 3): the z pass
-    over 4-point groups, the y pass from registers in runs of rows, with
-    its y band rows laid out [mass, stiff][row][k] (k padded to a multiple
-    of 4), and chunks of up to MARCH_RUNS_MAX_CHUNK planes.  MassStiff and
-    Mix keep their sums per point."""
-    return mode in ("ChebInvd", "ChebDiag", "MixSplit", "Apply") and p >= 3
+    K9c, K9d, K4, K9a (Apply), K5, K9b (MassStiff) and K1's split march at
+    p >= 3, K1 (Mix) on the ``ty`` = 16-row tile at p = 3): the z pass over
+    4-point groups, the y pass from registers in runs of rows, with its y
+    band rows laid out [mass, stiff][row][k] (k padded to a multiple of
+    4), and chunks of up to MARCH_RUNS_MAX_CHUNK planes.  Mix on the 8-row
+    tile, and at p = 4, keeps its sums per point."""
+    if mode == "Mix":
+        return p == 3 and ty == MARCH_TILE[0]
+    return mode in ("ChebInvd", "ChebDiag", "MixSplit", "Apply", "MassStiff") and p >= 3
 
 
 def march_max_chunk(mode: str, p: int) -> int:
-    """The most planes one block of ``mode`` marches at degree ``p`` (csrc
-    March::ZC)."""
+    """The most planes one block of ``mode`` (Mix: on the 16-row tile)
+    marches at degree ``p`` (csrc March::ZC)."""
     return MARCH_RUNS_MAX_CHUNK[p] if march_runs(mode, p) else MARCH_MAX_CHUNK
 
 
-def march_smem_bytes(p: int, ty: int, rings: int) -> int:
+def march_smem_bytes(p: int, ty: int, rings: int, runs: bool = False) -> int:
     """Shared memory of a z-march block without per-point fields (csrc
     March<P, Mode>): ``rings`` rings of 2p + 2 haloed planes, the z-pass
-    planes E and F, the y-pass fields C and D, the z and y band rows."""
+    planes E and F, the y-pass fields C and D, the z and y band rows (in
+    ``runs``: a chunk of MARCH_RUNS_MAX_CHUNK planes, the y rows [mass,
+    stiff][row][k] with k padded to a multiple of 4)."""
     nb, hx, hy = 2 * p + 1, MARCH_TILE[1] + 2 * p, ty + 2 * p
     plane = hy * hx
-    floats = (rings * (2 * p + 2) * plane + 2 * plane + 2 * ty * hx
-              + 2 * nb * MARCH_MAX_CHUNK + 2 * nb * ty)
+    zc = MARCH_RUNS_MAX_CHUNK[p] if runs else MARCH_MAX_CHUNK
+    y_rows = 2 * ty * (-(-nb // 4) * 4) if runs else 2 * nb * ty
+    floats = rings * (2 * p + 2) * plane + 2 * plane + 2 * ty * hx + 2 * nb * zc + y_rows
     return 4 * floats
 
 
@@ -377,10 +387,13 @@ def pair_tile(p: int) -> int:
 
 def mix_tile(q: int, p: int) -> int:
     """K1's tile height at degree ``p`` with ``q`` stages: the tallest of
-    MIX_TILES whose block (a ring per stage) lets two blocks share an SM,
-    else the tallest that fits one block, else 0: no block holds the q
-    rings (p = 3 with q >= 7), and K1 takes the route K2 +
-    ``ms_mix_apply_split``.  At p = 4 the one-block form is left out, so K1
+    MIX_TILES whose block (a ring per stage; on the 16-row tile at p = 3 in
+    runs' layout, ``march_runs``) lets two blocks share an SM, else the
+    tallest that fits one block, else 0: no block holds the q rings (p = 3
+    with q >= 7), and K1 takes the route K2 + ``ms_mix_apply_split``.  At
+    p = 3 the one-block form stays: ``Mix<16, 4>`` in runs took P16's shape
+    (q = 4) in 0.4349 ms on the H100 against the route's 0.4784 (PERF.md,
+    section 6).  At p = 4 the one-block form is left out, so K1
     takes the route wherever no tile lets two blocks share an SM (q >= 3):
     one ``Mix<8, 4>`` block per SM (8-row tile, 2q barriers a plane) read
     0.100 of its bound at P17's shape, and the route's split march runs its
@@ -389,7 +402,7 @@ def mix_tile(q: int, p: int) -> int:
     tile (2 points) keeps them in registers (csrc/ms_mix_apply.cu)."""
     for per_sm in (2,) if p >= 4 else (2, 1):
         for ty in MIX_TILES if q <= 4 else MIX_TILES[1:]:
-            nbytes = march_smem_bytes(p, ty, q)
+            nbytes = march_smem_bytes(p, ty, q, march_runs("Mix", p, ty))
             if nbytes <= BLOCK_SMEM_BYTES and per_sm * (nbytes + 1024) <= SM_SMEM_BYTES:
                 return ty
     return 0
@@ -406,24 +419,27 @@ def march_planes(nz: int, chunk: int, bz: int) -> tuple[int, int, int]:
 @functools.lru_cache(maxsize=None)  # once per shape: the search costs a launch about 7 us of host time
 def runs_chunk(mode: str, q: int, nz: int, m: int, p: int) -> int:
     """The chunk of a launch of a mode of RUNS_BLOCKS in runs (p >= 3: K3
-    and K9c, ChebInvd, two blocks per SM; K4 and K9a, Apply, three at p = 3
-    and two at p = 4): the power of two up to ``march_max_chunk`` that
-    gives the busiest SM the least work, counted as its blocks (ceil(blocks
-    / SMS)) times the planes of each plus one for the block's ring fill,
-    among the chunks that give every SM the mode's resident blocks where
-    any does; of equal ones the longest.  For K3 and K9c on the H100 at
-    P16's 95, P17's and P20's 127 levels and P18's first slab this picked
-    the fastest chunk of the sweep or one within 1% of it (PERF.md), where
-    ``march_plan``'s rule (the longest that leaves two blocks per SM) took
-    16 planes at P16's 95 level (1.09 waves, 16% slower) and 8 on the
-    slab; for K4 and K9a at P20's 127, P17's and P19's 255 and P16's 191
-    levels and on P18's first slab the fastest of the sweep
-    (scripts/torch_chunk_sweep.py)."""
+    and K9c, ChebInvd, two blocks per SM; K4 and K9a, Apply, and K5 and
+    K9b, MassStiff, three at p = 3 and two at p = 4; K1, Mix on the 16-row
+    tile at p = 3, one block for all q stages, one per SM): the power of
+    two up to ``march_max_chunk`` that gives the busiest SM the least work,
+    counted as its blocks (ceil(blocks / SMS)) times the planes of each
+    plus one for the block's ring fill, among the chunks that give every SM
+    the mode's resident blocks where any does; of equal ones the longest.
+    For K3 and K9c on the H100 at P16's 95, P17's and P20's 127 levels and
+    P18's first slab this picked the fastest chunk of the sweep or one
+    within 1% of it (PERF.md), where ``march_plan``'s rule (the longest
+    that leaves two blocks per SM) took 16 planes at P16's 95 level (1.09
+    waves, 16% slower) and 8 on the slab; for K4 and K9a at P20's 127,
+    P17's and P19's 255 and P16's 191 levels and on P18's first slab, K5 at
+    P20's vmult and P16's shape, K9b on P18's first slab and K1 at P16's
+    finest level the fastest of the sweep (scripts/torch_chunk_sweep.py)."""
     tiles = -(-m // MARCH_TILE[1]) * -(-m // MARCH_TILE[0])
+    lanes = 1 if mode == "Mix" else q
     resident = RUNS_BLOCKS[mode][p]
 
     def cost(chunk: int) -> tuple:
-        per_sm = -(-tiles * q * -(-nz // chunk) // SMS)
+        per_sm = -(-tiles * lanes * -(-nz // chunk) // SMS)
         return per_sm < resident, per_sm * (chunk + 1), -chunk
 
     cap = march_max_chunk(mode, p)
@@ -432,8 +448,8 @@ def runs_chunk(mode: str, q: int, nz: int, m: int, p: int) -> int:
 
 def _runs_plan(ops: LevelOps, q: int, nz: int, mode: str = "ChebDiag") -> tuple[int]:
     """(chunk,) of a launch of a march mode but Mix: ``march_plan`` with
-    the mode's most planes per block at the level's degree; K3, K9c, K4 and
-    K9a in runs (RUNS_BLOCKS) ``runs_chunk``."""
+    the mode's most planes per block at the level's degree; K3, K9c, K4,
+    K9a, K5 and K9b in runs (RUNS_BLOCKS) ``runs_chunk``."""
     if mode in RUNS_BLOCKS and march_runs(mode, ops.p):
         return (runs_chunk(mode, q, nz, ops.m, ops.p),)
     return (march_plan(q, nz, ops.m, max_chunk=march_max_chunk(mode, ops.p))[0],)
@@ -514,7 +530,7 @@ def mass_stiffness_apply(ops: LevelOps, u: torch.Tensor):
     q, m, p = _check_block(ops, u, "u")
     mu, ku = torch.empty_like(u), torch.empty_like(u)
     name = _entry("mass_stiffness_apply", u)
-    plan = (march_plan(q, m, m)[0],) if u.ndim == 4 else ()
+    plan = _runs_plan(ops, q, m, "MassStiff") if u.ndim == 4 else ()
     _launch("spirk_" + name, u, mu, ku, ops.mass_band, ops.stiff_band, q, m, *plan, p)
     LAUNCHES[name] += 1
     return mu, ku
@@ -621,7 +637,7 @@ def mass_stiffness_apply_halo(ops: LevelOps, u_h: torch.Tensor):
     mu = torch.empty((q, nzl, m, m), dtype=u_h.dtype, device=u_h.device)
     ku = torch.empty_like(mu)
     _launch("spirk_mass_stiffness_apply_halo", u_h, mu, ku, ops.mass_band, ops.stiff_band,
-            q, m, nzl, ops.z_off, march_plan(q, nzl, m)[0], p)
+            q, m, nzl, ops.z_off, *_runs_plan(ops, q, nzl, "MassStiff"), p)
     LAUNCHES["mass_stiffness_apply_halo"] += 1
     return mu, ku
 
@@ -659,10 +675,35 @@ def cheb_iter_dg_halo(ops: LevelOps, a, b, c1, c2, d_h, r, x):
     return r_out, d_out, x_out
 
 
-def ms_mix_apply(ops: LevelOps, Ainv: torch.Tensor, tau, u: torch.Tensor) -> torch.Tensor:
+def mix_table(Ainv: torch.Tensor, tau, device=None) -> torch.Tensor:
+    """K1's coefficient table: (q + 1, q) f32 contiguous on ``device``
+    (default Ainv's), rows Ainv, then tau per stage."""
+    q = Ainv.shape[0]
+    device = Ainv.device if device is None else device
+    tau_row = torch.full((1, q), float(tau), dtype=torch.float32, device=device)
+    return torch.cat([Ainv.to(device=device, dtype=torch.float32), tau_row], dim=0).contiguous()
+
+
+def mix_plan(q: int, m: int, p: int) -> tuple[int, int]:
+    """(tile height, chunk) of K1's Mix launch over q stages of m^3
+    (``mix_tile``'s tile; (0, 0) for the route): on the 16-row tile at
+    p = 3 (in runs) ``runs_chunk``, else ``march_plan`` with a block for
+    every stage."""
+    ty = mix_tile(q, p)
+    if not ty:
+        return 0, 0
+    if march_runs("Mix", p, ty):
+        return ty, runs_chunk("Mix", q, m, m, p)
+    return ty, march_plan(q, m, m, ty, per_stage=False)[0]
+
+
+def ms_mix_apply(ops: LevelOps, Ainv: torch.Tensor, tau, u: torch.Tensor,
+                 mw: torch.Tensor | None = None) -> torch.Tensor:
     """K1: out_i = sum_j Ainv[i, j] (M u_j) + tau (K u_i); q <= 8, 3D.  One
-    launch of the z march's Mix mode on ``mix_tile``'s tile; where no tile
-    holds the q rings, K2 (v = Ainv u) and ``ms_mix_apply_split``."""
+    launch of the z march's Mix mode on ``mix_plan``'s tile and chunk; where
+    no tile holds the q rings, K2 (v = Ainv u) and ``ms_mix_apply_split``.
+    ``mw``: the launch's coefficient table ``mix_table(Ainv, tau)``, built
+    by the caller once per Ainv and tau (default: built here)."""
     if _on_cpu(u, Ainv, ops.mass_band):
         return ms_mix_apply_ref(ops, Ainv, tau, u)
     if u.ndim != 4:
@@ -670,13 +711,16 @@ def ms_mix_apply(ops: LevelOps, Ainv: torch.Tensor, tau, u: torch.Tensor) -> tor
     q, m, p = _check_block(ops, u, "u")
     if q > QMAX or tuple(Ainv.shape) != (q, q):
         raise ValueError(f"ms_mix_apply takes q <= {QMAX} and a (q, q) Ainv")
-    ty = mix_tile(q, p)
+    ty, chunk = mix_plan(q, m, p)
     if not ty:
         return ms_mix_apply_split(ops, tau, stage_mix(Ainv, u), u)
-    tau_row = torch.full((1, q), float(tau), dtype=torch.float32, device=u.device)
-    mw = torch.cat([Ainv.to(torch.float32), tau_row], dim=0).contiguous()
+    if mw is None:
+        mw = mix_table(Ainv, tau, u.device)
+    else:
+        _check_field(mw, (q + 1, q), "mw")
+        if mw.device != u.device:
+            raise ValueError("mw and u must share a device")
     out = torch.empty_like(u)
-    chunk, _grid = march_plan(q, m, m, ty, per_stage=False)
     _launch("spirk_ms_mix_apply", u, out, ops.mass_band, ops.stiff_band, mw, q, m, ty, chunk, p)
     LAUNCHES["ms_mix_apply"] += 1
     return out

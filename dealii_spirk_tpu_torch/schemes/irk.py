@@ -70,6 +70,7 @@ class IRK(RadauScheme):
         tabs = self.tables
         self.T, self.T_inv = self.tensor(tabs.T), self.tensor(tabs.T_inv)
         self.d_vec = self.tensor(tabs.D)
+        self._k1_table = None  # (tau, K1's coefficient table), k1_table
         self.mesh = None
         if params.time_integration_scheme == "spirk":
             self._init_mesh(mesh)
@@ -179,6 +180,13 @@ class IRK(RadauScheme):
         )
         return res.x, res.n_iterations
 
+    def k1_table(self, tau) -> torch.Tensor:
+        """K1's (q + 1, q) coefficient table [A^-1; tau] (``st.mix_table``),
+        built once per tau and handed to every K1 launch of the vmult."""
+        if self._k1_table is None or self._k1_table[0] != float(tau):
+            self._k1_table = (float(tau), st.mix_table(self.A_inv, tau))
+        return self._k1_table[1]
+
     def solve_fn(self, W_rhs, prec, tau):
         """GMRES on the coupled system; returns (W, n_outer, per-stage
         inner counts, restarts)."""
@@ -188,11 +196,13 @@ class IRK(RadauScheme):
         mix = st.stage_mix if k else st.stage_mix_ref
         ms = st.mass_stiffness_apply if k else st.mass_stiffness_apply_ref
         phase = self.timers.phase
+        k1 = k and dim == 3 and not self.sequential
+        mw = self.k1_table(tau) if k1 else None
 
         def Aop(W):
             with phase("system_vmult"):
-                if k and dim == 3 and not self.sequential:  # K1
-                    return st.ms_mix_apply(fine, self.A_inv, tau, W)
+                if k1:
+                    return st.ms_mix_apply(fine, self.A_inv, tau, W, mw)
                 MW, KW = ms(fine, W)  # K5, K2, + tau K W
                 return mix(self.A_inv, MW) + tau * KW
 

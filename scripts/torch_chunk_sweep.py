@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""The chunk sweep of the z march's Apply mode (K4, K9a) on one CUDA
-device: each case launched at every chunk its tree's march takes, on one
-or more trees' packages in turns.
+"""The chunk sweep of the z march's Apply (K4, K9a), MassStiff (K5, K9b)
+and Mix (K1) modes on one CUDA device: each case launched at every chunk
+its tree's march takes, on one or more trees' packages in turns.
 
     python3 scripts/torch_chunk_sweep.py [--tree NAME=DIR ...] [--order tree,...]
                                          [--cases NAME,...] [--out FILE]
@@ -12,10 +12,11 @@ parent commit unpacked with ``git archive`` into a directory that
 ``dealii_spirk_tpu_torch`` from its tree (so it builds and launches that
 tree's kernels) and this checkout's ``chip_smoke.py``.  Per case of CASES
 and per chunk, a power of two up to the tree's most planes per block
-(``march_max_chunk("Apply", p)``, csrc March::ZC): the launch's output,
-which must equal the wrapper's bit for bit (taps, weights and the order of
-sums at a point do not depend on the chunk; the wrapper itself is held to
-its plain version, ``chip_smoke.REL_TOL``), and its device time per launch
+(``march_max_chunk(mode, p)``, csrc March::ZC): the wrapper's launch with
+its chunk replaced, whose outputs must equal the wrapper's bit for bit
+(taps, weights and the order of sums at a point do not depend on the
+chunk; the wrapper itself is held to its plain version,
+``chip_smoke.REL_TOL``), and its device time per launch
 L2-cold (``chip_smoke.device_ms`` over input sets of twice the L2), the
 least of ``chip_smoke.TURNS`` turns.  The wrapper's own chunk is marked,
 and its launch's grid, registers and shared memory (``chip_smoke.launch_attrs``)
@@ -36,14 +37,26 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TAG = "SWEEP_RESULT "
-# name: (q, refinement, degree, on the first of two z slabs)
+# name: (wrapper, q, refinement, degree, on the first of two z slabs)
 CASES = {
-    "K4 P20 r5": (6, 5, 4, False),  # P20's 127 level, six lanes
-    "K4 P17 r6": (4, 6, 4, False),  # P17's 255 level
-    "K4 P19 r6": (5, 6, 4, False),  # P19's 255 level
-    "K4 P16 r6": (4, 6, 3, False),  # P16's 191 level (Q3)
-    "K9a P18 slab": (1, 5, 4, True),  # P18's first slab: 64 of 127 planes
+    "K4 P20 r5": ("stencil_apply", 6, 5, 4, False),  # P20's 127 level, six lanes
+    "K4 P17 r6": ("stencil_apply", 4, 6, 4, False),  # P17's 255 level
+    "K4 P19 r6": ("stencil_apply", 5, 6, 4, False),  # P19's 255 level
+    "K4 P16 r6": ("stencil_apply", 4, 6, 3, False),  # P16's 191 level (Q3)
+    "K9a P18 slab": ("stencil_apply", 1, 5, 4, True),  # P18's first slab: 64 of 127 planes
+    "K5 P20 r5": ("mass_stiffness_apply", 6, 5, 4, False),  # P20's vmult
+    "K5 P16 r6": ("mass_stiffness_apply", 4, 6, 3, False),  # P16's shape (Q3)
+    "K9b P18 slab": ("mass_stiffness_apply", 1, 5, 4, True),
+    "K1 P16 r6": ("ms_mix_apply", 4, 6, 3, False),  # P16's finest level (Q3)
 }
+# per wrapper: its march mode and the profiler's name of its kernel
+MODES = {"stencil_apply": ("Apply", "::Apply"), "mass_stiffness_apply": ("MassStiff", "MassStiff"),
+         "ms_mix_apply": ("Mix", "Mix<")}
+
+
+def outputs(out) -> tuple:
+    """A wrapper's outputs as a tuple (K5: M u, K u)."""
+    return out if isinstance(out, tuple) else (out,)
 
 
 def run_arm(tree: str, names: list[str]) -> dict:
@@ -70,7 +83,8 @@ def run_arm(tree: str, names: list[str]) -> dict:
     device = torch.device("cuda", 0)
     rows = []
     for name in names:
-        q, ref, p, halo = CASES[name]
+        key, q, ref, p, halo = CASES[name]
+        mode, marker = MODES[key]
         ops = level_ops(make_level(ref, p), torch.float32, device)
         m = ops.m
         nz = z_partition(m, 2)[0][1] if halo else m
@@ -78,44 +92,55 @@ def run_arm(tree: str, names: list[str]) -> dict:
         h = p if halo else 0
         gen = cs.device_generator(device, 7 * ref + q + 100 * p)
         a = torch.linspace(0.5, 2.0, q, device=device)
-        coefs = st._stage_coefs(a, q, device)
+        ainv = torch.linspace(-1.0, 1.0, q * q, device=device).reshape(q, q)
+        fn = getattr(st, key + ("_halo" if halo else ""))
+        ref_fn = getattr(st, key + ("_halo" if halo else "") + "_ref")
+        args = {"stencil_apply": (a, 0.1), "mass_stiffness_apply": (),
+                "ms_mix_apply": (ainv, 0.1)}[key]
 
         def operand():
             u = cs.uniform_field((q, nz + 2 * h, m, m), -1.0, 1.0, device, gen)
             u[:, :h] = 0.0  # a first slab: zeros below the domain
             return u
 
-        def launch(u, chunk):
-            out = torch.empty((q, nz, m, m), dtype=torch.float32, device=device)
-            entry = "spirk_stencil_apply_halo" if halo else "spirk_stencil_apply"
-            slab = (nz, 0) if halo else ()
-            st._launch_raw(entry, device, u.data_ptr(), out.data_ptr(),
-                           sops.mass_band.data_ptr(), sops.stiff_band.data_ptr(),
-                           coefs.data_ptr(), 0.1, q, m, *slab, chunk, p)
-            return out
+        def launch(u, chunk=None, seen=None):
+            """The wrapper on u, its launch at ``chunk`` planes per block
+            (None: its own, put into ``seen``)."""
+            real = st._launch_raw
 
-        kern = st.stencil_apply_halo if halo else st.stencil_apply
-        plain = st.stencil_apply_halo_ref if halo else st.stencil_apply_ref
-        n_bytes = 4 * q * (2 * nz + 2 * h) * m * m
+            def at_chunk(entry, dev, *largs):  # ..., chunk, p
+                if seen is not None:
+                    seen.append(largs[-2])
+                real(entry, dev, *largs[:-2], largs[-2] if chunk is None else chunk, largs[-1])
+
+            st._launch_raw = at_chunk
+            try:
+                return fn(sops, *args, u)
+            finally:
+                st._launch_raw = real
+
+        n_bytes = 4 * q * (cs.PASSES[key] * nz + 2 * h) * m * m
         sets = [(operand(),) for _ in range(max(2, -(-2 * cs.L2_CACHE_BYTES // n_bytes)))]
-        want = kern(sops, a, 0.1, sets[0][0])
-        cs._hold(f"{tree}: {name}", want, plain(sops, a, 0.1, sets[0][0]), cs.REL_TOL)
-        cap = st.march_max_chunk("Apply", p)
+        seen = []
+        want = launch(sets[0][0], seen=seen)
+        (wrapper,) = seen
+        cs._hold(f"{tree}: {name}", want, ref_fn(sops, *args, sets[0][0]), cs.REL_TOL)
+        cap = st.march_max_chunk(mode, p)
         chunks = [2**k for k in range(cap.bit_length()) if 2**k <= cap]
         for chunk in chunks:
-            if not torch.equal(launch(sets[0][0], chunk), want):
+            got = launch(sets[0][0], chunk)
+            if not all(torch.equal(g, w) for g, w in zip(outputs(got), outputs(want))):
                 raise AssertionError(f"{tree}: {name} at chunk {chunk} differs from the wrapper")
-        bnd = cs.bound("stencil_apply", q, q, nz * m * m, p, 3, halo_points=2 * h * m * m)[0]
+        bnd = cs.bound(key, q, q, nz * m * m, p, 3, halo_points=2 * h * m * m)[0]
         best = {}
         for _turn in range(cs.TURNS):
             for chunk in chunks:
                 call = cs._rotating(lambda u, chunk=chunk: launch(u, chunk), sets)
-                dev = cs.device_ms(call, cs.DEVICE_NAMES["stencil_apply"])[0]
+                dev = cs.device_ms(call, (marker,))[0]
                 if dev is not None and (best.get(chunk) is None or dev < best[chunk]):
                     best[chunk] = dev
                 best.setdefault(chunk, None)
-        (wrapper,) = st._runs_plan(sops, q, nz, "Apply")
-        attrs = cs.launch_attrs(lambda: kern(sops, a, 0.1, sets[0][0]), "::Apply")
+        attrs = cs.launch_attrs(lambda: launch(sets[0][0]), marker)
         row = {"case": name, "at": f"3D p={p} m={m} q={q}" + (f" slab of {nz}" if halo else ""),
                "bound_ms": bnd, "wrapper_chunk": wrapper, "launch": attrs,
                "cold_device_ms": {str(c): v for c, v in best.items()}}

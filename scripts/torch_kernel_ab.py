@@ -5,7 +5,7 @@ device: ``chip_smoke.py``'s measurement phase (and, with ``--smooth``, its
 
     python3 scripts/torch_kernel_ab.py --parent DIR [--arm-tree NAME=DIR ...]
                                        [--order parent,tree,tree,parent] [--smooth] [--check]
-                                       [--arms] [--keys K,...] [--out FILE]
+                                       [--arms] [--keys K,...] [--degrees P,...] [--out FILE]
 
 ``DIR`` holds another commit's tree (for example ``git archive`` of the
 parent commit unpacked into a directory that ``.gitignore`` lists); "tree"
@@ -14,8 +14,9 @@ Each arm runs in a process of its own that imports
 ``dealii_spirk_tpu_torch`` from its tree (so it builds and launches that
 tree's kernels) and this checkout's ``chip_smoke.py``, and measures the
 MEASURE_CASES of KEYS (K3, K4, K9c, K9a, K3dg, K9d, K1, K1's split route,
-K5, K9b, K8, K5-2D, or those of ``--keys``; a key that an arm's package
-lacks is left out of that arm):
+K5, K9b, K8, K5-2D, or those of ``--keys``, which also takes K2
+(``stage_mix``), at every degree or those of ``--degrees``; a key that an
+arm's package lacks is left out of that arm):
 device time per launch from ``torch.profiler``, time per call from CUDA
 events, L2-warm and L2-cold, over ``chip_smoke.TURNS`` turns, beside the
 bound (K8 beside two K3dg launches); ``--check`` holds each kernel to its
@@ -25,8 +26,8 @@ takes a digest of its outputs' bytes, and the arms' digests of BITWISE
 (K3, K4, K9c, K9a, K3dg, K9d, K1, K1's split route, K5, K9b) must be
 equal, as ``torch.equal`` would find them (but for NEW_SUMS);
 ``--smooth`` adds the 2D and 3D smooth-field rows (Q1, and at degrees 3
-and 4); ``--arms`` K3's, K3dg's and K4's diagnostic arms
-(``chip_smoke.measure_arms``) of KEYS in each arm whose library has them.  The
+and 4); ``--arms`` the diagnostic arms (``chip_smoke.measure_arms``: K3,
+K3dg, K4, K5, K1) of KEYS in each arm whose library has them.  The
 arms' wrappers must take the same Python arguments.  Prints one line per
 arm and case, a table, and writes every figure as JSON to ``--out``.  Needs a CUDA
 device; imports nothing of JAX.
@@ -47,6 +48,8 @@ TAG = "AB_RESULT "
 KEYS = ("cheb_iter", "stencil_apply", "cheb_iter_halo", "stencil_apply_halo", "cheb_iter_dg",
         "cheb_iter_dg_halo", "ms_mix_apply", "ms_mix_apply_split", "mass_stiffness_apply",
         "mass_stiffness_apply_halo", "cheb_pair_dg", "mass_stiffness_apply_2d")
+# keys that --keys takes besides KEYS (K2: beside K1's split march, its route)
+EXTRA_KEYS = ("stage_mix",)
 # kernels whose arithmetic every arm must keep bit for bit
 BITWISE = ("cheb_iter", "stencil_apply", "cheb_iter_halo", "stencil_apply_halo", "cheb_iter_dg",
            "cheb_iter_dg_halo", "ms_mix_apply", "ms_mix_apply_split", "mass_stiffness_apply",
@@ -66,12 +69,13 @@ def digest(out) -> str:
     return h.hexdigest()[:16]
 
 
-def run_arm(tree: str, smooth: bool, check: bool, keys=KEYS, arms: bool = False) -> dict:
+def run_arm(tree: str, smooth: bool, check: bool, keys=KEYS, arms: bool = False,
+            degrees=(1, 2, 3, 4)) -> dict:
     """In this process: the measurement of KEYS on ``tree``'s package;
     ``check``: each kernel held to its plain version at the measured shape
     first (``chip_smoke.REL_TOL``) and its outputs' digest kept; ``arms``:
-    K3's, K3dg's and K4's diagnostic arms too (``chip_smoke.measure_arms``),
-    where the tree's library has them."""
+    the diagnostic arms of KEYS too (``chip_smoke.measure_arms``), where the
+    tree's library has them."""
     sys.path.insert(0, os.path.abspath(tree))
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
     cs = importlib.util.module_from_spec(spec)
@@ -91,7 +95,8 @@ def run_arm(tree: str, smooth: bool, check: bool, keys=KEYS, arms: bool = False)
     build.build()
     device = torch.device("cuda", 0)
     # the KEYS this tree's package has (an older tree may lack a newer entry)
-    cases = [c for c in cs.MEASURE_CASES if c[0] in keys and c[0] in st.LAUNCHES]
+    cases = [c for c in cs.MEASURE_CASES
+             if c[0] in keys and c[0] in st.LAUNCHES and c[-1] in degrees]
     digests = {}
     if check:
         for case in cases:
@@ -129,17 +134,20 @@ def main(argv=None) -> int:
     ap.add_argument("--smooth", action="store_true")
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--arms", action="store_true",
-                    help="K3's, K3dg's and K4's passes-only and copies-only arms")
+                    help="the passes-only and copies-only arms of K3, K3dg, K4, K5, K1")
     ap.add_argument("--keys", default=",".join(KEYS), help="the KEYS to measure, comma-separated")
+    ap.add_argument("--degrees", default="1,2,3,4",
+                    help="the degrees of the MEASURE_CASES to measure, comma-separated")
     ap.add_argument("--out", default=None)
     ap.add_argument("--arm", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     keys = args.keys.split(",")
-    if not set(keys) <= set(KEYS):
-        ap.error(f"--keys takes some of {', '.join(KEYS)}")
+    if not set(keys) <= set(KEYS + EXTRA_KEYS):
+        ap.error(f"--keys takes some of {', '.join(KEYS + EXTRA_KEYS)}")
     if args.arm is not None:
-        print(TAG + json.dumps(run_arm(args.arm, args.smooth, args.check, keys, args.arms)),
-              flush=True)
+        degrees = tuple(int(p) for p in args.degrees.split(","))
+        print(TAG + json.dumps(run_arm(args.arm, args.smooth, args.check, keys, args.arms,
+                                       degrees)), flush=True)
         return 0
     if "parent" in args.order.split(",") and args.parent is None:
         ap.error("--parent is required for a 'parent' arm")
@@ -152,7 +160,7 @@ def main(argv=None) -> int:
     for arm in args.order.split(","):
         cmd = [sys.executable, os.path.abspath(__file__), "--arm", trees[arm]]
         flags = ([f"--{f}" for f in ("smooth", "check", "arms") if getattr(args, f)]
-                 + ["--keys", args.keys])
+                 + ["--keys", args.keys, "--degrees", args.degrees])
         proc = subprocess.run(cmd + flags, capture_output=True, text=True)
         lines = [ln for ln in proc.stdout.splitlines() if not ln.startswith(TAG)]
         print("\n".join(f"[{arm}] {ln}" for ln in lines), flush=True)

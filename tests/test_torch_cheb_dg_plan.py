@@ -15,19 +15,22 @@ card (``chip_smoke.py``), the plan and the launch arguments are Python.
 * the six march wrappers hand the C entry points the arguments of
   ``build.SIGNATURES`` in order: pointers, ``b`` by value, the (q,)
   coefficient tables of ``a`` (and ``c1``, ``c2``), the plan's chunk;
-* K1 (the Mix mode: a block for every stage, ``mix_tile``'s tile height)
-  and its route (K2, then a block per stage of ``ms_mix_apply_split``), K5
-  and K9b: every K1, K5 and K9b launch shape of ``chip_smoke.KERNEL_CASES``,
-  ``HALO_CASES`` and the paths P1, P2, P4-P10 covers every output plane of
-  every stage once at its own tile; the wrappers hand their entry points
-  ``build.SIGNATURES``'s arguments in order; ``mix_tile`` picks the route
-  exactly where no block holds the q rings, and ``march_smem_bytes`` is
-  the shared memory ptxas reported for a one-ring mode outside runs;
-* the passes in runs (``march_runs``: K3, K3dg, K9c, K9d, K4, K9a and the
-  split march at p >= 3): each mode's layout at p = 1-4
-  (``_mode_smem_bytes``, a mirror of csrc ``March<P, Mode>``; ChebInvd in
-  runs with one plane of its fields) is the shared memory the card's
-  launches reported, with the blocks per SM it allows (the modes of
+* K1 (the Mix mode: a block for every stage, ``mix_plan``'s tile height
+  and chunk) and its route (K2, then a block per stage of
+  ``ms_mix_apply_split``), K5 and K9b: every K1, K5 and K9b launch shape
+  of ``chip_smoke.KERNEL_CASES``, ``HALO_CASES`` and the paths covers
+  every output plane of every stage once at its own tile and chunk; the
+  wrappers hand their entry points ``build.SIGNATURES``'s arguments in
+  order (K1 the caller's coefficient table where it passes one, as the
+  ``irk_batched`` scheme does, built once per tau); ``mix_tile`` picks the
+  route exactly where no block holds the q rings, and ``march_smem_bytes``
+  is the shared memory ptxas reported for a one-ring mode;
+* the passes in runs (``march_runs``: K3, K3dg, K9c, K9d, K4, K9a, K5, K9b
+  and the split march at p >= 3, K1 on the 16-row tile at p = 3): each
+  mode's layout at p = 1-4 (``_mode_smem_bytes``, a mirror of csrc
+  ``March<P, Mode>``; ChebInvd in runs with one plane of its fields; Mix
+  with the rings of four stages) is the shared memory the card's launches
+  reported, with the blocks per SM it allows (the modes of
   ``RUNS_BLOCKS`` in runs: those it plans for); their launches at Q3's
   191 and Q4's 255 levels cover every plane once in chunks of up to
   ``MARCH_RUNS_MAX_CHUNK``; K3's and K9c's, K4's and K9a's (``runs_chunk``
@@ -222,23 +225,24 @@ K9B_LANES = {"P6": 1, "P7": 1, "P8": 2, "P9": 2, "P18": 1}
 
 
 def _ms_launches() -> dict:
-    """(q, nz, m) of every K5 and K9b launch of the kernels phase and the paths."""
+    """(q, nz, m, p) of every K5 and K9b launch of the kernels phase and the paths."""
     shapes = {}
     for dim, q, ref, p, names, _timed in chip_smoke.KERNEL_CASES:
         if dim == 3 and "mass_stiffness_apply" in names:
-            shapes[f"K5 q={q} r={ref} p={p}"] = (q, _m(ref, p), _m(ref, p))
+            shapes[f"K5 q={q} r={ref} p={p}"] = (q, _m(ref, p), _m(ref, p), p)
     for _q, ref, p, nsps, _timed in chip_smoke.HALO_CASES:
         m = _m(ref, p)
         for nsp in nsps:
             for z0, z1 in z_partition(m, nsp):
-                shapes[f"K9b r={ref} p={p} {nsp} slabs, planes {z0}:{z1}"] = (1, z1 - z0, m)
+                shapes[f"K9b r={ref} p={p} {nsp} slabs, planes {z0}:{z1}"] = (1, z1 - z0, m, p)
     for name, (_dim, cfg, _levels) in chip_smoke.PATHS.items():
-        m = _m(cfg["NRefinements"], cfg["FEDegree"])
+        p = cfg["FEDegree"]
+        m = _m(cfg["NRefinements"], p)
         if name in K5_LANES:
-            shapes[f"{name} K5"] = (K5_LANES[name], m, m)
+            shapes[f"{name} K5"] = (K5_LANES[name], m, m, p)
         elif name in K9B_LANES:
             for z0, z1 in z_partition(m, 2):
-                shapes[f"{name} K9b planes {z0}:{z1}"] = (K9B_LANES[name], z1 - z0, m)
+                shapes[f"{name} K9b planes {z0}:{z1}"] = (K9B_LANES[name], z1 - z0, m, p)
     return shapes
 
 
@@ -273,14 +277,42 @@ def _covered(q, nz, m, ty, per_stage, max_chunk=st.MARCH_MAX_CHUNK):
     return seen
 
 
+def _runs_covered(mode, q, nz, m, p, lanes):
+    """A launch of ``mode`` in runs (``runs_chunk``'s chunk): each (stage,
+    plane) its blocks write, counted (Mix: ``lanes`` 1, a block for every
+    stage), in chunks of up to MARCH_RUNS_MAX_CHUNK; the busiest SM holds
+    the mode's resident blocks where one-plane chunks give it that many."""
+    chunk = st.runs_chunk(mode, q, nz, m, p)
+    assert chunk & (chunk - 1) == 0 and 1 <= chunk <= st.MARCH_RUNS_MAX_CHUNK[p]
+    nch = -(-nz // chunk)
+    seen = {}
+    for bz in range(lanes * nch):
+        stage, z0, z1 = st.march_planes(nz, chunk, bz)
+        assert 0 <= stage < lanes and 0 <= z0 < z1 <= nz and z1 - z0 <= chunk
+        for i in [stage] if lanes == q else range(q):
+            for z in range(z0, z1):
+                seen[i, z] = seen.get((i, z), 0) + 1
+    tiles = -(-m // st.MARCH_TILE[1]) * -(-m // st.MARCH_TILE[0])
+    resident = st.RUNS_BLOCKS[mode][p]
+    if -(-tiles * lanes * nz // st.SMS) >= resident:
+        assert -(-tiles * lanes * nch // st.SMS) >= resident
+    return seen
+
+
 @pytest.mark.parametrize("where", sorted(K1_SHAPES))
 def test_k1_plan_covers_every_plane_once(where):
     """K1's launch: every stage's planes once, by blocks that each hold
-    every stage (Mix), on ``mix_tile``'s tile; on the route, the split
-    march's blocks one stage each on the 16-row tile."""
+    every stage (Mix), on ``mix_plan``'s tile and chunk (in runs, the
+    16-row tile at p = 3, ``runs_chunk`` with one block for every stage);
+    on the route, the split march's blocks one stage each on the 16-row
+    tile."""
     q, m, p = K1_SHAPES[where]
-    ty = st.mix_tile(q, p)
-    if ty:
+    ty, chunk = st.mix_plan(q, m, p)
+    if ty and st.march_runs("Mix", p, ty):
+        assert chunk == st.runs_chunk("Mix", q, m, m, p)
+        seen = _runs_covered("Mix", q, m, m, p, lanes=1)
+    elif ty:
+        assert chunk == st.march_plan(q, m, m, ty, per_stage=False)[0]
         seen = _covered(q, m, m, ty, per_stage=False)
     else:
         seen = _covered(q, m, m, st.MARCH_TILE[0], per_stage=True,
@@ -290,9 +322,27 @@ def test_k1_plan_covers_every_plane_once(where):
 
 @pytest.mark.parametrize("where", sorted(MS_SHAPES))
 def test_k5_plan_covers_every_plane_once(where):
-    q, nz, m = MS_SHAPES[where]
-    seen = _covered(q, nz, m, st.MARCH_TILE[0], per_stage=True)
+    """K5's and K9b's launches (MassStiff): at p >= 3 in runs,
+    ``runs_chunk``'s chunk (P20's vmult, P16's shape, P18's slabs), below
+    ``march_plan``'s; every plane of every stage once."""
+    q, nz, m, p = MS_SHAPES[where]
+    if st.march_runs("MassStiff", p):
+        seen = _runs_covered("MassStiff", q, nz, m, p, lanes=q)
+    else:
+        seen = _covered(q, nz, m, st.MARCH_TILE[0], per_stage=True)
     assert seen == {(i, z): 1 for i in range(q) for z in range(nz)}
+
+
+def test_the_ms_and_k1_shapes_hold_the_degree_sweeps_launches():
+    """The K5, K9b and K1 shapes above include P20's vmult, P18's two slabs
+    and P16's finest level, with the chunks of the card's sweep."""
+    assert MS_SHAPES["P20 K5"] == (6, 127, 127, 4)
+    assert MS_SHAPES["P18 K9b planes 0:64"] == (1, 64, 127, 4)
+    assert MS_SHAPES["P18 K9b planes 64:127"] == (1, 63, 127, 4)
+    assert K1_SHAPES["P16"] == (4, 191, 3)
+    assert st.runs_chunk("MassStiff", 6, 127, 127, 4) == 32
+    assert st.runs_chunk("MassStiff", 1, 64, 127, 4) == 4
+    assert st.mix_plan(4, 191, 3) == (16, 8)
 
 
 def test_the_k1_cases_take_both_tiles_and_the_route():
@@ -331,6 +381,9 @@ MARCH_MODES = {
     "MassStiff": (1, 0, False),  # K5, K9b
     "MixSplit": (2, 0, False),  # K1's route: v, u
 }
+# Mix<16, 4> (K1 on the 16-row tile) as its residency counts it: the rings
+# of four stages (csrc March::SM_FLOATS)
+MIX_MODE = (4, 0, False)
 
 
 def _mode_smem_bytes(p, mode):
@@ -340,7 +393,7 @@ def _mode_smem_bytes(p, mode):
     March::RX1), the z band rows of a chunk, the y band rows ([mass,
     stiff][row][k], k padded to 4, where ``march_runs``) and ChebDiag's 1D
     diagonals."""
-    rings, fields, diag = MARCH_MODES[mode]
+    rings, fields, diag = MIX_MODE if mode == "Mix" else MARCH_MODES[mode]
     ty, tx = st.MARCH_TILE
     nb, hx, hy = 2 * p + 1, tx + 2 * p, ty + 2 * p
     zc = st.march_max_chunk(mode, p)
@@ -361,12 +414,13 @@ def _blocks(nbytes):
 
 # the dynamic shared memory of K3's and K9c's (ChebInvd), K3dg's (ChebDiag),
 # K4's and K9a's (Apply), K5's and K9b's (MassStiff) and the split march's
-# (MixSplit) launches at p = 1-4 as the card's profiler trace recorded them
-# (csrc March<P, Mode>::SMEM_FLOATS * 4; PERF.md section 6): in runs (p >= 3,
-# all but MassStiff) the y band rows lie [mass, stiff][row][k], k padded to a
-# multiple of 4, and the z band rows and diagonals are a chunk's of up to 32
-# (p = 3) or 64 (p = 4) planes; ChebInvd there holds one plane of its three
-# fields, not two
+# (MixSplit) launches at p = 1-4, and of K1's four-stage launch on the
+# 16-row tile at p = 3 (Mix), as the card's profiler trace recorded them
+# (csrc March<P, Mode>::SMEM_FLOATS * 4, Mix with a ring per stage; PERF.md
+# section 6): in runs (p >= 3; Mix at p = 3) the y band rows lie [mass,
+# stiff][row][k], k padded to a multiple of 4, and the z band rows and
+# diagonals are a chunk's of up to 32 (p = 3) or 64 (p = 4) planes; ChebInvd
+# there holds one plane of its three fields, not two
 MODE_SMEM = {("ChebInvd", 1): 62304, ("ChebInvd", 2): 78080, ("ChebInvd", 3): 85664,
              ("ChebInvd", 4): 110592,
              ("ChebDiag", 1): 54368, ("ChebDiag", 2): 70144, ("ChebDiag", 3): 90144,
@@ -374,12 +428,14 @@ MODE_SMEM = {("ChebInvd", 1): 62304, ("ChebInvd", 2): 78080, ("ChebInvd", 3): 85
              ("MixSplit", 3): 122656, ("MixSplit", 4): 167424,
              ("Apply", 1): 37728, ("Apply", 2): 53504, ("Apply", 3): 73376,
              ("Apply", 4): 98304, ("MassStiff", 1): 37728, ("MassStiff", 2): 53504,
-             ("MassStiff", 3): 72352, ("MassStiff", 4): 94464}
-# and the blocks per SM that each allows (csrc March::BLOCKS)
+             ("MassStiff", 3): 73376, ("MassStiff", 4): 98304, ("Mix", 3): 221216}
+# and the blocks per SM that each allows (csrc March::BLOCKS; Mix per point,
+# at p = 1, 2 and 4, is held to 2)
 MODE_BLOCKS = {"ChebInvd": (3, 2, 2, 2), "ChebDiag": (4, 3, 2, 2), "MixSplit": (4, 2, 1, 1),
-               "Apply": (4, 4, 3, 2), "MassStiff": (4, 4, 3, 2)}
-# the modes whose passes run in runs at p >= 3 (csrc March::RUNS)
-RUNS_MODES = ("ChebInvd", "ChebDiag", "MixSplit", "Apply")
+               "Apply": (4, 4, 3, 2), "MassStiff": (4, 4, 3, 2), "Mix": (2, 2, 1, 2)}
+# the modes whose passes run in runs at p >= 3 (csrc March::RUNS; Mix only
+# at p = 3, on the 16-row tile)
+RUNS_MODES = ("ChebInvd", "ChebDiag", "MixSplit", "Apply", "MassStiff")
 
 
 @pytest.mark.parametrize("mode, p", sorted(MODE_SMEM))
@@ -388,7 +444,7 @@ def test_march_mode_smem_is_the_kernels_layout(mode, p):
     assert nbytes == MODE_SMEM[mode, p]
     assert nbytes <= st.BLOCK_SMEM_BYTES
     assert _blocks(nbytes) == MODE_BLOCKS[mode][p - 1]
-    runs = mode in RUNS_MODES and p >= 3
+    runs = (mode in RUNS_MODES and p >= 3) or (mode == "Mix" and p == 3)
     assert st.march_runs(mode, p) == runs
     assert st.march_max_chunk(mode, p) == ({3: 32, 4: 64}[p] if runs else st.MARCH_MAX_CHUNK)
 
@@ -396,9 +452,10 @@ def test_march_mode_smem_is_the_kernels_layout(mode, p):
 @pytest.mark.parametrize("p", [1, 2, 3, 4])
 def test_march_blocks_per_sm(p):
     """The blocks per SM that each mode's shared memory allows, at most 4:
-    MassStiff's and Mix's layouts (``march_smem_bytes``) do not change with
-    the passes in runs, and the modes that ``runs_chunk`` plans for hold the
-    blocks of RUNS_BLOCKS."""
+    MassStiff's layout is ``march_smem_bytes``'s with one ring, in runs at
+    p >= 3; the modes that ``runs_chunk`` plans for hold the blocks of
+    RUNS_BLOCKS; Mix<16, 4> runs in runs only at p = 3, where its four
+    stages' rings (``mix_tile``'s tile for q = 4) leave one block per SM."""
     for mode in MARCH_MODES:
         nbytes = _mode_smem_bytes(p, mode)
         blocks = _blocks(nbytes)
@@ -408,10 +465,16 @@ def test_march_blocks_per_sm(p):
         assert st.march_runs(mode, p) == (mode in RUNS_MODES and p >= 3)
         if mode in st.RUNS_BLOCKS and st.march_runs(mode, p):
             assert blocks == st.RUNS_BLOCKS[mode][p]
-    assert not st.march_runs("MassStiff", p) and not st.march_runs("Mix", p)
-    assert _mode_smem_bytes(p, "MassStiff") == st.march_smem_bytes(p, st.MARCH_TILE[0], 1)
-    assert st.RUNS_BLOCKS.keys() == {"ChebInvd", "Apply"}
-    assert all(st.RUNS_BLOCKS[mode].keys() == {3, 4} for mode in st.RUNS_BLOCKS)
+    assert st.march_runs("MassStiff", p) == (p >= 3)
+    assert st.march_runs("Mix", p) == (p == 3) and not st.march_runs("Mix", p, 8)
+    assert _mode_smem_bytes(p, "MassStiff") == st.march_smem_bytes(p, st.MARCH_TILE[0], 1, p >= 3)
+    assert st.RUNS_BLOCKS.keys() == {"ChebInvd", "Apply", "MassStiff", "Mix"}
+    assert all(st.RUNS_BLOCKS[mode].keys() == ({3} if mode == "Mix" else {3, 4})
+               for mode in st.RUNS_BLOCKS)
+    mix = st.march_smem_bytes(p, st.MARCH_TILE[0], 4, st.march_runs("Mix", p))
+    if p == 3:
+        assert st.mix_tile(4, p) == 16 and mix == _mode_smem_bytes(p, "Mix")
+        assert _blocks(mix) == st.RUNS_BLOCKS["Mix"][p] == MODE_BLOCKS["Mix"][p - 1] == 1
 
 
 @pytest.mark.parametrize("q, m", [(1, 255), (4, 191), (4, 255), (5, 255), (6, 255), (8, 191)])
@@ -636,16 +699,20 @@ def test_every_k1_form_is_held_by_a_kernel_case(p):
 
 
 # the dynamic shared memory of a one-ring march outside runs at p = 1-4 as
-# ptxas reported it on the H100 (March<P, MassStiff>::SMEM_FLOATS * 4, and
-# Apply's at p = 1-2; PERF.md section 6): the layout ``march_smem_bytes``
-# gives ``mix_tile``
+# ptxas reported it on the H100 (March<P, MassStiff>::SMEM_FLOATS * 4 per
+# point, and Apply's at p = 1-2; PERF.md section 6): the layout
+# ``march_smem_bytes`` gives ``mix_tile`` outside runs
 PER_POINT_SMEM = {1: 37728, 2: 53504, 3: 72352, 4: 94464}
 
 
 @pytest.mark.parametrize("p", sorted(PER_POINT_SMEM))
 def test_march_smem_bytes_is_the_kernels_layout(p):
+    """One ring per point, and in runs at p >= 3 MassStiff's layout there
+    (and Apply's)."""
     assert st.march_smem_bytes(p, st.MARCH_TILE[0], 1) == PER_POINT_SMEM[p]
-    assert PER_POINT_SMEM[p] == MODE_SMEM["MassStiff", p]
+    runs = st.march_runs("MassStiff", p)
+    assert st.march_smem_bytes(p, st.MARCH_TILE[0], 1, runs) == MODE_SMEM["MassStiff", p]
+    assert MODE_SMEM["MassStiff", p] == MODE_SMEM["Apply", p]
 
 
 def _k_args(monkeypatch, fn, *args):
@@ -655,15 +722,17 @@ def _k_args(monkeypatch, fn, *args):
 
 
 @pytest.mark.parametrize("halo", [False, True])
-def test_k5_launch_arguments(monkeypatch, halo):
+@pytest.mark.parametrize("p", [1, 3, 4])
+def test_k5_launch_arguments(monkeypatch, halo, p):
     """K5 and K9b: u, M u, K u, the band tables, q, m, [nzl, z_off,] the
-    plan's chunk, p."""
+    plan's chunk (at p >= 3 ``runs_chunk``'s, mode MassStiff; below
+    ``march_plan``'s), p."""
     q, ref, z0, nzl = 3, 4, 5, 6
-    ops = level_ops(make_level(ref, 1), torch.float32, "cpu")
+    ops = level_ops(make_level(ref, p), torch.float32, "cpu")
     m = ops.m
     sops = slab_ops(ops, z0, nzl) if halo else ops
     nz = nzl if halo else m
-    u = torch.zeros(q, nz + 2 * halo, m, m)
+    u = torch.zeros(q, nz + 2 * halo * p, m, m)
     name = "spirk_mass_stiffness_apply" + ("_halo" if halo else "")
     fn = st.mass_stiffness_apply_halo if halo else st.mass_stiffness_apply
     ((called, args),) = _k_args(monkeypatch, fn, sops, u)
@@ -673,15 +742,20 @@ def test_k5_launch_arguments(monkeypatch, halo):
     assert args[0] == u.data_ptr()
     assert args[3:5] == (sops.mass_band.data_ptr(), sops.stiff_band.data_ptr())
     slab = (nzl, z0) if halo else ()
-    assert args[5:] == (q, m, *slab, st.march_plan(q, nz, m)[0], 1)
+    chunk = st.runs_chunk("MassStiff", q, nz, m, p) if p >= 3 else st.march_plan(q, nz, m)[0]
+    assert args[5:] == (q, m, *slab, chunk, p)
+    assert (chunk, st.march_max_chunk("MassStiff", p)) == {
+        1: (st.march_plan(q, nz, m)[0], 16), 3: (chunk, 32), 4: (chunk, 64)}[p]
 
 
-@pytest.mark.parametrize("q, p", [(4, 1), (8, 1), (2, 4), (3, 4), (4, 4), (8, 4)])
+@pytest.mark.parametrize("q, p", [(4, 1), (8, 1), (2, 4), (3, 4), (4, 4), (8, 4), (4, 3),
+                                  (2, 3)])
 def test_k1_launch_arguments(monkeypatch, q, p):
     """K1: u, out, the band tables, the (q + 1, q) table [A^-1; tau], q, m,
-    the tile height, the chunk of a block for every stage, p; on the route
-    (no tile holds the q rings) K2's v = A^-1 u, then the split march: v,
-    u, out, the band tables, tau by value, q, m, the chunk, p."""
+    the tile height, the chunk of a block for every stage (``mix_plan``:
+    at p = 3 on the 16-row tile ``runs_chunk``'s), p; on the route (no tile
+    holds the q rings) K2's v = A^-1 u, then the split march: v, u, out,
+    the band tables, tau by value, q, m, the chunk, p."""
     ops = level_ops(make_level(2, p), torch.float32, "cpu")
     m = ops.m
     u = torch.zeros(q, m, m, m)
@@ -703,13 +777,49 @@ def test_k1_launch_arguments(monkeypatch, q, p):
     if ty:
         assert args[0] == u.data_ptr()
         assert args[2:4] == (ops.mass_band.data_ptr(), ops.stiff_band.data_ptr())
-        chunk, _grid = st.march_plan(q, m, m, ty, per_stage=False)
-        assert args[5:] == (q, m, ty, chunk, p)
+        if st.march_runs("Mix", p, ty):
+            chunk = st.runs_chunk("Mix", q, m, m, p)
+        else:
+            chunk, _grid = st.march_plan(q, m, m, ty, per_stage=False)
+        assert args[5:] == (q, m, ty, chunk, p) and (ty, chunk) == st.mix_plan(q, m, p)
+        # the caller's coefficient table, where it hands one, goes as it is
+        mw = st.mix_table(ainv, 0.25)
+        ((_k1, with_mw),) = _k_args(monkeypatch, st.ms_mix_apply, ops, ainv, 0.25, u, mw)
+        assert with_mw[4] == mw.data_ptr()
+        assert (with_mw[0], *with_mw[2:4], *with_mw[5:]) == (args[0], *args[2:4], *args[5:])
     else:
         assert args[0] == k2_args[1] and args[1] == u.data_ptr()
         assert args[3:6] == (ops.mass_band.data_ptr(), ops.stiff_band.data_ptr(), 0.25)
         chunk = st.march_plan(q, m, m, max_chunk=st.march_max_chunk("MixSplit", p))[0]
         assert args[6:] == (q, m, chunk, p)
+
+
+@pytest.mark.parametrize("q", [2, 4])
+def test_k1_table_is_built_once_per_tau(q):
+    """K1's coefficient table: ``mix_table`` is the (q + 1, q) f32 table the
+    wrapper builds without one (rows A^-1, then tau per stage); the
+    ``irk_batched`` scheme holds it, builds it once per tau and anew for a
+    new tau, and its vmult hands it to every K1 launch."""
+    from dealii_spirk_tpu_torch.config import Parameters
+    from dealii_spirk_tpu_torch.problem import HeatProblem
+    from dealii_spirk_tpu_torch.schemes import make_scheme
+
+    params = Parameters.from_dict({
+        "FEDegree": 1, "NRefinements": 2, "TimeIntegrationScheme": "irk_batched",
+        "IRKStages": q, "TimeStepSize": 0.1, "EndTime": 0.1, "OperatorType": "MatrixFree",
+        "BlockPreconditionerType": "GMG", "InnerTolerance": 0.0, "OuterTolerance": 1e-8,
+        "Precision": "f32", "DoOutputParaview": False}, dim=3)
+    scheme = make_scheme(HeatProblem(params, device="cpu"), params, kernels=True)
+    ainv = scheme.A_inv
+    today = torch.cat([ainv.to(torch.float32), torch.full((1, q), 0.1, dtype=torch.float32)])
+    table = scheme.k1_table(0.1)
+    assert table.dtype == torch.float32 and table.is_contiguous() and table.shape == (q + 1, q)
+    assert torch.equal(table, today) and torch.equal(st.mix_table(ainv, 0.1), today)
+    assert scheme.k1_table(0.1) is table
+    other = scheme.k1_table(0.05)
+    assert other is not table and torch.equal(other[:q], table[:q])
+    assert torch.equal(other[q], torch.full((q,), 0.05, dtype=torch.float32))
+    assert scheme.k1_table(0.05) is other
 
 
 @pytest.mark.parametrize("q", [1, 4, 5])
