@@ -32,14 +32,18 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--phase-timers", action=argparse.BooleanOptionalAction, default=True,
-        help="time the system vmult and the preconditioner's basis changes and block "
-        "solves in place, for the t_vmult / t_prec_* columns (the reference's in-loop "
-        "phase timers, main.cc:998-1173); on by default",
+        help="time the phases inside each step in place: the system vmult and the "
+        "preconditioner's basis changes and block solves, for the t_vmult / t_prec_* "
+        "columns (the reference's in-loop phase timers, main.cc:998-1173), and GMRES's "
+        "vector and host work, the V-cycle's smoothing and transfers and the error, "
+        "which no column shows; on by default",
     )
     parser.add_argument(
         "--profile", metavar="DIR", default=None,
         help="record a torch.profiler trace of the run (host and device) into "
-        "DIR/trace.json",
+        "DIR/trace.json; every phase of the step is a spirk.<phase> range on it "
+        "(spirk.total, spirk.rhs, spirk.outer_solver, spirk.system_vmult, "
+        "spirk.krylov_host, spirk.mg_smooth, ..., spirk.errors)",
     )
     parser.add_argument("configs", nargs="+", help="JSON parameter files")
     return parser
@@ -48,7 +52,9 @@ def build_parser() -> argparse.ArgumentParser:
 @contextlib.contextmanager
 def profiled(out_dir: str | None, device: str):
     """``torch.profiler`` over the block, its Chrome trace written to
-    ``out_dir/trace.json``; nothing when ``out_dir`` is None."""
+    ``out_dir/trace.json``; nothing when ``out_dir`` is None.  The phase
+    timers open a ``spirk.<phase>`` range around every phase while it
+    records (``utils/timer.py``)."""
     if out_dir is None:
         yield
         return

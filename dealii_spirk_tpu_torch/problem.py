@@ -9,6 +9,10 @@ The manufactured solution is separable, so
   precomputed with QGauss(p+1) (reference ``main.cc:3213-3219``),
 * L2/Linf errors integrate ``(u_h - u)^2`` with QGauss(p+2) on the tensor
   quadrature grid (reference ``main.cc:3436-3469``).
+
+The problem owns the run's phase timers (``utils/timer.py``): its schemes
+time their phases in the same object, and ``errors`` is the ``errors``
+phase.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from .config import Parameters
 from .fem.functions import WAVE, rhs_time_factor, solution_time_factor
 from .fem.grid import Space, make_space
 from .ops.banded import apply_dense_1d
+from .utils.timer import PhaseTimers
 
 
 def require_device(device) -> torch.device:
@@ -63,6 +68,9 @@ class HeatProblem:
         self._E = t(sp.err_eval)
         self._wq = t(sp.err_wq)
         self._sinq = t(np.sin(WAVE * np.pi * sp.err_xq))
+        # the run's phase timers; a scheme made on this problem sets their
+        # ``inner`` and times its phases in them
+        self.timers = PhaseTimers(self.device)
 
     def stage_load(self, tf: torch.Tensor) -> torch.Tensor:
         """(len(tf), *spatial) per-stage load block ``tf_i * F0``."""
@@ -80,15 +88,17 @@ class HeatProblem:
         return self.u0
 
     def errors(self, u: torch.Tensor, t: float) -> tuple[float, float]:
-        """(L2, Linf) error against the analytical solution at time t."""
-        dim = self.space.dim
-        uq = u
-        for ax in range(dim):
-            uq = apply_dense_1d(self._E, uq, ax)
-        tt = torch.tensor(t, dtype=self.dtype, device=self.device)
-        exact = _outer([self._sinq] * dim) * solution_time_factor(tt)
-        diff = uq - exact
-        sq = diff * diff
-        for ax in reversed(range(dim)):
-            sq = torch.tensordot(sq, self._wq, dims=([ax], [0]))
-        return float(torch.sqrt(sq)), float(diff.abs().max())
+        """(L2, Linf) error against the analytical solution at time t
+        (the ``errors`` phase, which ends in the host's read of both)."""
+        with self.timers.phase("errors"):
+            dim = self.space.dim
+            uq = u
+            for ax in range(dim):
+                uq = apply_dense_1d(self._E, uq, ax)
+            tt = torch.tensor(t, dtype=self.dtype, device=self.device)
+            exact = _outer([self._sinq] * dim) * solution_time_factor(tt)
+            diff = uq - exact
+            sq = diff * diff
+            for ax in reversed(range(dim)):
+                sq = torch.tensordot(sq, self._wq, dims=([ax], [0]))
+            return float(torch.sqrt(sq)), float(diff.abs().max())

@@ -40,8 +40,13 @@ def run_config(
     written outside ``solve_step`` so that no step time or phase timer sees
     them.  ``phase_timers``:
     fill t_vmult, t_prec_bc and t_prec_solver by timing those phases in
-    place (``PhaseTimers(inner=True)``; off, as the JAX package's
-    ``profile_phases``, they read "-").  ``scheme_options``
+    place (``PhaseTimers.inner``; off, as the JAX package's
+    ``profile_phases``, they read "-"), and with them the phases that no
+    column shows (GMRES's ``krylov_vectors`` and ``krylov_host``, the
+    V-cycle's ``mg_smooth`` and ``mg_transfer``, each step's ``errors``),
+    read from ``out["scheme"].timers.seconds``.  Under a ``torch.profiler``
+    session every phase is also a ``spirk.<phase>`` range on the trace,
+    whatever ``phase_timers`` says.  ``scheme_options``
     go to the scheme's constructor (``kernels``, ``tables``, ``start``,
     ``cheb_pair``: K8 on the unsharded V-cycles, default from
     ``SPIRK_CHEB_PAIR``)."""

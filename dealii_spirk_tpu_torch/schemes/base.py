@@ -49,9 +49,12 @@ class SchemeBase:
         ``cheb_pair``: let the unsharded kernel V-cycles take two Chebyshev
         steps per K8 launch (``gmg.vcycle``; default ``config.CHEB_PAIR``,
         off unless ``SPIRK_CHEB_PAIR=1``).
-        ``phase_timers``: also time the system vmult and the
-        preconditioner's basis changes and block solves in place
-        (``PhaseTimers(inner=True)``); off, their columns read "-"."""
+        ``phase_timers``: also time the phases inside the step (the
+        system vmult, the preconditioner's basis changes and block solves,
+        GMRES's vector and host work, the V-cycle's smoothing and
+        transfers) and the error in place (``PhaseTimers.inner``); off,
+        their columns read "-".  The timers are the problem's
+        (``problem.timers``), so the error lands in the same object."""
         self.problem = problem
         self.params = params
         self.dim = problem.space.dim
@@ -67,7 +70,8 @@ class SchemeBase:
         self.fine = self.gmg.level_ops[-1]
         self.start = start
         self.cheb_pair = config.CHEB_PAIR if cheb_pair is None else cheb_pair
-        self.timers = PhaseTimers(self.device, inner=phase_timers)
+        self.timers: PhaseTimers = problem.timers
+        self.timers.inner = phase_timers
         self.n_outer = 0.0
         self.n_inner = 0.0
         # per-stage inner counts for per-stage time attribution (reference

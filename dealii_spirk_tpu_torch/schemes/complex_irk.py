@@ -137,9 +137,9 @@ class ComplexIRK(RadauScheme):
     def _vcycle(self, prec, a, tau, r):
         if self.mesh is not None:
             return vcycle(self.gmg, prec, a, tau, r, self.dim, kernels=self.kernels,
-                          mesh=self.mesh)
+                          mesh=self.mesh, phase=self.timers.phase)
         return vcycle(self.gmg, prec, a, tau, r, self.dim, kernels=self.kernels,
-                      cheb_pair=self.cheb_pair)
+                      cheb_pair=self.cheb_pair, phase=self.timers.phase)
 
     def _shifted(self, a, tau, w):
         """(a_j M + tau K) w_j: K4, or K9a on the mesh."""
@@ -230,6 +230,7 @@ class ComplexIRK(RadauScheme):
             reltol=self.params.outer_tolerance,
             restart=self.restart,
             batch=True,
+            phase=phase,
         )
         with phase("preconditioner_bc"):
             x = lane_view(res.x)

@@ -125,7 +125,8 @@ class IRK(RadauScheme):
             return shk.sharded_stencil_apply(level, self.d_vec, tau, W, kernels=k)
 
         def V(r):
-            return vcycle(self.gmg, prec, self.d_vec, tau, r, self.dim, kernels=k, mesh=mesh)
+            return vcycle(self.gmg, prec, self.d_vec, tau, r, self.dim, kernels=k, mesh=mesh,
+                          phase=phase)
 
         inner_tol = self.params.inner_tolerance
 
@@ -153,6 +154,7 @@ class IRK(RadauScheme):
             abstol=1e-20,
             reltol=self.params.outer_tolerance,
             restart=self.restart,
+            phase=phase,
         )
         return res.x, res.n_iterations, res.M_carry, res.n_restarts
 
@@ -164,7 +166,7 @@ class IRK(RadauScheme):
 
         def V(r):
             return vcycle(self.gmg, prec_i, d_i, tau, r, self.dim, kernels=self.kernels,
-                          cheb_pair=self.cheb_pair)
+                          cheb_pair=self.cheb_pair, phase=self.timers.phase)
 
         inner_tol = self.params.inner_tolerance
         if inner_tol <= 0.0:
@@ -222,7 +224,7 @@ class IRK(RadauScheme):
                     z = torch.cat(outs)
                 else:
                     z = vcycle(self.gmg, prec, self.d_vec, tau, z, dim, kernels=k,
-                               cheb_pair=self.cheb_pair)
+                               cheb_pair=self.cheb_pair, phase=phase)
                     carry = carry + 1
             with phase("preconditioner_bc"):
                 return mix(self.T, z), carry
@@ -236,6 +238,7 @@ class IRK(RadauScheme):
             abstol=1e-20,
             reltol=self.params.outer_tolerance,
             restart=self.restart,
+            phase=phase,
         )
         return res.x, res.n_iterations, res.M_carry, res.n_restarts
 

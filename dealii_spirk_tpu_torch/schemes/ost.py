@@ -56,7 +56,8 @@ class OneStepTheta(SchemeBase):
                     lambda v: apply(self.fine, one, THETA * tau, v),
                     rhs,
                     M=lambda r: vcycle(self.gmg, prec, one, THETA * tau, r, self.dim,
-                                       kernels=self.kernels, cheb_pair=self.cheb_pair),
+                                       kernels=self.kernels, cheb_pair=self.cheb_pair,
+                                       phase=self.timers.phase),
                     x0=U,
                     maxiter=MAXITER,
                     abstol=abstol,

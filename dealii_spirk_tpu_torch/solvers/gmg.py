@@ -59,6 +59,7 @@ from ..ops.banded import apply_dense_1d
 from ..ops.transfer import prolong, restrict
 from ..parallel.mesh import SlotMesh
 from ..parallel.sharding import ShardedBlock, canon_shardable, scatter, send, z_partition
+from ..utils.timer import no_phase
 from .chebyshev import chebyshev_apply, estimate_chebyshev_range
 
 SMOOTHER_DEGREE = 5  # reference preconditioner.h:222
@@ -398,6 +399,7 @@ def vcycle(
     mesh: SlotMesh | None = None,
     top: int | None = None,
     cheb_pair: bool = False,
+    phase: Callable = no_phase,
 ):
     """One stage-batched V-cycle approximating (a_i M + b K)^-1 r_i
     (``a``, ``prec`` and ``r`` share the stage axis).  ``top``: start at
@@ -406,7 +408,10 @@ def vcycle(
     docstring); the result is one too.  ``cheb_pair``: with ``kernels``,
     smooth the ``cheb_pair_level`` levels by K8, two steps per launch
     (ignored on a mesh).  Without ``kernels`` each level's plain
-    operators take its own route (``mass_laplace``).
+    operators take its own route (``mass_laplace``).  ``phase``:
+    ``phase(name)`` gives the context of each level's smoothing
+    (``mg_smooth``) and of its residual and transfers (``mg_transfer``);
+    default: none.
 
     Per level: pre-smoothing from a zero initial guess, the residual
     ``r - A x`` restricted to the next coarser level, the coarse
@@ -416,7 +421,7 @@ def vcycle(
     solve when InnerTolerance == 0, reference ``main.cc:1126-1148``).
     """
     if mesh is not None:
-        return _vcycle_mesh(prec, a, b, r, dim, kernels=kernels)
+        return _vcycle_mesh(prec, a, b, r, dim, kernels=kernels, phase=phase)
     apply_fn = st.stencil_apply if kernels else st.stencil_apply_ref
     fused = kernels and dim == 3  # K3 is 3D; 2D chains its step over K4-2D
 
@@ -468,16 +473,22 @@ def vcycle(
     def solve(l: int, rl: torch.Tensor) -> torch.Tensor:
         if l == 0:
             return _coarse_solve(prec, rl)
-        x = smooth(l, rl)
-        res = rl - apply_fn(gmg.level_ops[l], a, b, x)
-        xc = solve(l - 1, restrict(gmg.prolongs[l - 1], res, dim))
-        x = x + prolong(gmg.prolongs[l - 1], xc, dim)
-        return smooth(l, rl, x0=x)
+        with phase("mg_smooth"):
+            x = smooth(l, rl)
+        with phase("mg_transfer"):
+            res = rl - apply_fn(gmg.level_ops[l], a, b, x)
+            rc = restrict(gmg.prolongs[l - 1], res, dim)
+        xc = solve(l - 1, rc)
+        with phase("mg_transfer"):
+            x = x + prolong(gmg.prolongs[l - 1], xc, dim)
+        with phase("mg_smooth"):
+            return smooth(l, rl, x0=x)
 
     return solve(len(gmg.level_ops) - 1 if top is None else top, r)
 
 
-def _vcycle_mesh(mp: MeshPrec, a, b, r: ShardedBlock, dim: int, *, kernels: bool) -> ShardedBlock:
+def _vcycle_mesh(mp: MeshPrec, a, b, r: ShardedBlock, dim: int, *, kernels: bool,
+                 phase: Callable) -> ShardedBlock:
     """``vcycle`` on the mesh of ``mp``."""
     mesh = mp.mesh
 
@@ -527,7 +538,7 @@ def _vcycle_mesh(mp: MeshPrec, a, b, r: ShardedBlock, dim: int, *, kernels: bool
                 [row[0]] + [send(t, dev, "coarse_gather") for t in row[1:]], dim=1
             ) if len(row) > 1 else row[0]
             gmg_i, prec_i, a_i = mp.rows[i]
-            x = vcycle(gmg_i, prec_i, a_i, b, whole, dim, kernels=kernels, top=l)
+            x = vcycle(gmg_i, prec_i, a_i, b, whole, dim, kernels=kernels, top=l, phase=phase)
             if len(row) == 1:
                 parts.append([x])
                 continue
@@ -543,10 +554,15 @@ def _vcycle_mesh(mp: MeshPrec, a, b, r: ShardedBlock, dim: int, *, kernels: bool
         level = mp.levels[l]
         if level is None:
             return solve_rows(l, rl)
-        x = smooth(l, rl)
-        res = rl - shk.sharded_stencil_apply(level, a, b, x, kernels=kernels)
-        xc = solve(l - 1, transfer(mp.restricts[l - 1], mp.P[l - 1], res, True))
-        x = x + transfer(mp.prolongs[l - 1], mp.P[l - 1], xc, False)
-        return smooth(l, rl, x0=x)
+        with phase("mg_smooth"):
+            x = smooth(l, rl)
+        with phase("mg_transfer"):
+            res = rl - shk.sharded_stencil_apply(level, a, b, x, kernels=kernels)
+            rc = transfer(mp.restricts[l - 1], mp.P[l - 1], res, True)
+        xc = solve(l - 1, rc)
+        with phase("mg_transfer"):
+            x = x + transfer(mp.prolongs[l - 1], mp.P[l - 1], xc, False)
+        with phase("mg_smooth"):
+            return smooth(l, rl, x0=x)
 
     return solve(len(mp.levels) - 1, r)

@@ -22,7 +22,11 @@ host.  The JAX package's adaptive 12-column first cycle exists because a
 compiled graph is static; a dynamic loop that allocates basis vectors as
 it goes gives the same iterates as one long restart cycle without it.
 GMRES keeps the small Hessenberg/Givens arithmetic on the host in numpy
-at the field's dtype.
+at the field's dtype.  Given a ``phase`` callable (``PhaseTimers.phase``)
+it times its own device vector work as ``krylov_vectors`` and that host
+arithmetic, from the return of each host read to the next launch, as
+``krylov_host``; the operator and the preconditioner are the caller's to
+time.
 
 The solvers touch their vectors only through arithmetic with vectors,
 numbers and per-lane coefficients, ``_dot``, ``_where`` and ``_zeros_like``,
@@ -37,6 +41,8 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+
+from ..utils.timer import no_phase
 
 
 # The JAX package's huge-grid GMRES policy (krylov.py:183-193): above
@@ -202,6 +208,7 @@ def gmres(
     reltol: float = 0.0,
     restart: int = 28,
     batch: bool = False,
+    phase: Callable = no_phase,
 ) -> KrylovResult:
     """Left-preconditioned GMRES(restart) with modified Gram–Schmidt and
     Givens rotations, from x0 = 0.
@@ -217,6 +224,9 @@ def gmres(
     ``_gmres_lanes``); the carry is then a numpy array whose leading axis
     is the lane axis, and the counts are per lane.  Unbatched, the system
     is one lane.
+
+    ``phase``: ``phase(name)`` gives the context in which the solver runs
+    its ``krylov_vectors`` and ``krylov_host`` work (default: none).
     """
     stateful = M is not None and M_carry is not None
     if M is None:
@@ -225,7 +235,7 @@ def gmres(
         Ms = lambda v, c: (M(v), c)
     else:
         Ms = M
-    kw = dict(maxiter=maxiter, abstol=abstol, reltol=reltol, restart=restart)
+    kw = dict(maxiter=maxiter, abstol=abstol, reltol=reltol, restart=restart, phase=phase)
     if batch:
         return _gmres_lanes(A, b, Ms, M_carry, stateful=stateful, **kw)
 
@@ -256,6 +266,7 @@ def _gmres_lanes(
     abstol: float,
     reltol: float,
     restart: int,
+    phase: Callable,
 ) -> KrylovResult:
     """GMRES on independent systems stacked along the leading (lane) axis
     of ``b``, as the JAX package's ``gmres(batch=True)`` runs them
@@ -269,6 +280,10 @@ def _gmres_lanes(
     recomputed (one vmult and one preconditioner application for all
     lanes) when any lane goes on; the lanes that were live in that cycle
     take the recomputed residual, and its norm replaces their estimate.
+
+    Each host read of device results (a column of the Hessenberg, the
+    residual norms) closes a ``krylov_vectors`` block; the ``krylov_host``
+    block that follows runs until the next launch.
     """
     npdt = np.float64 if b.dtype == torch.float64 else np.float32
     f = npdt
@@ -287,85 +302,102 @@ def _gmres_lanes(
         act = active.reshape(active.shape + (1,) * (np.ndim(new) - 1))
         return np.where(act, new, old)
 
-    x = _zeros_like(b)
+    with phase("krylov_vectors"):
+        x = _zeros_like(b)
     r, carry = Ms(b, carry)
-    res = norms(r)
-    tol = np.maximum(f(abstol), f(max(reltol, _eps_floor(b.dtype))) * res)
-    it = np.zeros(lanes, dtype=np.int64)
-    n_restarts = n_sweeps = 0
+    with phase("krylov_vectors"):
+        res = norms(r)
+    with phase("krylov_host"):
+        tol = np.maximum(f(abstol), f(max(reltol, _eps_floor(b.dtype))) * res)
+        it = np.zeros(lanes, dtype=np.int64)
+        n_restarts = n_sweeps = 0
 
     def live():
         return (res > tol) & (it < maxiter)
 
     while live().any():
         cycle_live = live()
-        beta = norms(r)
-        V = [r / ex(np.where(beta > 0, beta, f(1.0)))]
-        H = np.zeros((lanes, R + 1, R), dtype=npdt)
-        g = np.zeros((lanes, R + 1), dtype=npdt)
-        g[:, 0] = beta
-        cs = np.zeros((lanes, R), dtype=npdt)
-        sn = np.zeros((lanes, R), dtype=npdt)
-        k = 0
+        with phase("krylov_vectors"):
+            beta = norms(r)
+        with phase("krylov_host"):
+            H = np.zeros((lanes, R + 1, R), dtype=npdt)
+            g = np.zeros((lanes, R + 1), dtype=npdt)
+            g[:, 0] = beta
+            cs = np.zeros((lanes, R), dtype=npdt)
+            sn = np.zeros((lanes, R), dtype=npdt)
+            k = 0
+        with phase("krylov_vectors"):
+            V = [r / ex(np.where(beta > 0, beta, f(1.0)))]
         while k < R and live().any():
             active = live()
             w, carry_new = Ms(A(V[k]), carry)
             carry = mask_carry(carry_new, carry, active)
-            hs = []
-            for j in range(k + 1):
-                hij = _dot(V[j], w, True)
-                w = w - _expand(hij, w, True) * V[j]
-                hs.append(hij)
-            hk1 = torch.sqrt(_dot(w, w, True))
-            hs.append(hk1)
-            V.append(w / _expand(torch.where(hk1 > 0, hk1, torch.ones_like(hk1)), w, True))
-            hcol = torch.stack(hs, dim=1).cpu().numpy().astype(npdt)  # (lanes, k + 2)
-            for j in range(k):
-                hj, hj1 = hcol[:, j].copy(), hcol[:, j + 1].copy()
-                hcol[:, j] = cs[:, j] * hj + sn[:, j] * hj1
-                hcol[:, j + 1] = -sn[:, j] * hj + cs[:, j] * hj1
-            hk, hk1r = hcol[:, k].copy(), hcol[:, k + 1].copy()
-            denom = np.sqrt(hk * hk + hk1r * hk1r)
-            pos = denom > 0
-            safe = np.where(pos, denom, f(1.0))
-            c_new = np.where(pos, hk / safe, f(1.0))
-            s_new = np.where(pos, hk1r / safe, f(0.0))
-            hcol[:, k] = denom
-            hcol[:, k + 1] = 0.0
-            gk = g[:, k].copy()
-            # frozen lanes keep their state
-            H[active, : k + 2, k] = hcol[active]
-            cs[active, k] = c_new[active]
-            sn[active, k] = s_new[active]
-            g[active, k] = (c_new * gk)[active]
-            g[active, k + 1] = (-s_new * gk)[active]
-            res = np.where(active, np.abs(-s_new * gk), res).astype(npdt)
-            it += active
-            n_sweeps += 1
-            k += 1
-        # per-lane back-substitution on the rotated (upper-triangular) H,
-        # over the columns with a nonzero diagonal, as the JAX package
-        # sizes it: a breakdown column (w = 0, e.g. an inner solve that
-        # took no iteration) drops out instead of dividing by zero
-        idx = np.arange(k)
-        n_cols = np.sum(np.abs(H[:, idx, idx]) > 0, axis=1)
-        y = np.zeros((lanes, k), dtype=npdt)
-        for lane in range(lanes):
-            kl = int(n_cols[lane])
-            for i in range(kl - 1, -1, -1):
-                y[lane, i] = (
-                    g[lane, i] - H[lane, i, i + 1 : kl] @ y[lane, i + 1 : kl]
-                ) / H[lane, i, i]
-        dx = _zeros_like(x)
-        for j in range(int(n_cols.max(initial=0))):
-            dx = dx + ex(y[:, j]) * V[j]
-        x = x + dx
+            with phase("krylov_vectors"):
+                hs = []
+                for j in range(k + 1):
+                    hij = _dot(V[j], w, True)
+                    w = w - _expand(hij, w, True) * V[j]
+                    hs.append(hij)
+                hk1 = torch.sqrt(_dot(w, w, True))
+                hs.append(hk1)
+                V.append(w / _expand(torch.where(hk1 > 0, hk1, torch.ones_like(hk1)), w, True))
+                hcol = torch.stack(hs, dim=1).cpu().numpy().astype(npdt)  # (lanes, k + 2)
+            with phase("krylov_host"):
+                for j in range(k):
+                    hj, hj1 = hcol[:, j].copy(), hcol[:, j + 1].copy()
+                    hcol[:, j] = cs[:, j] * hj + sn[:, j] * hj1
+                    hcol[:, j + 1] = -sn[:, j] * hj + cs[:, j] * hj1
+                hk, hk1r = hcol[:, k].copy(), hcol[:, k + 1].copy()
+                denom = np.sqrt(hk * hk + hk1r * hk1r)
+                pos = denom > 0
+                safe = np.where(pos, denom, f(1.0))
+                c_new = np.where(pos, hk / safe, f(1.0))
+                s_new = np.where(pos, hk1r / safe, f(0.0))
+                hcol[:, k] = denom
+                hcol[:, k + 1] = 0.0
+                gk = g[:, k].copy()
+                # frozen lanes keep their state
+                H[active, : k + 2, k] = hcol[active]
+                cs[active, k] = c_new[active]
+                sn[active, k] = s_new[active]
+                g[active, k] = (c_new * gk)[active]
+                g[active, k + 1] = (-s_new * gk)[active]
+                res = np.where(active, np.abs(-s_new * gk), res).astype(npdt)
+                it += active
+                n_sweeps += 1
+                k += 1
+        with phase("krylov_host"):
+            # per-lane back-substitution on the rotated (upper-triangular)
+            # H, over the columns with a nonzero diagonal, as the JAX
+            # package sizes it: a breakdown column (w = 0, e.g. an inner
+            # solve that took no iteration) drops out instead of dividing
+            # by zero
+            idx = np.arange(k)
+            n_cols = np.sum(np.abs(H[:, idx, idx]) > 0, axis=1)
+            y = np.zeros((lanes, k), dtype=npdt)
+            for lane in range(lanes):
+                kl = int(n_cols[lane])
+                for i in range(kl - 1, -1, -1):
+                    y[lane, i] = (
+                        g[lane, i] - H[lane, i, i + 1 : kl] @ y[lane, i + 1 : kl]
+                    ) / H[lane, i, i]
+        with phase("krylov_vectors"):
+            dx = _zeros_like(x)
+            for j in range(int(n_cols.max(initial=0))):
+                dx = dx + ex(y[:, j]) * V[j]
+            x = x + dx
         if live().any():
             # restart: recompute the preconditioned residual
-            r, carry_new = Ms(b - A(x), carry)
+            Ax = A(x)
+            with phase("krylov_vectors"):
+                d = b - Ax
+            r, carry_new = Ms(d, carry)
             carry = mask_carry(carry_new, carry, cycle_live)
-            res = np.where(cycle_live, norms(r), res).astype(npdt)
-            n_restarts += 1
+            with phase("krylov_vectors"):
+                rnorm = norms(r)
+            with phase("krylov_host"):
+                res = np.where(cycle_live, rnorm, res).astype(npdt)
+                n_restarts += 1
     return KrylovResult(
         x=x, n_iterations=it, residual=res, M_carry=carry,
         n_restarts=n_restarts, n_sweeps=n_sweeps,

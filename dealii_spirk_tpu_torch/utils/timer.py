@@ -5,22 +5,51 @@ counters ``time_total``, ``time_rhs``, ..., ``main.cc:754-760``; cleared
 after the first timestep so preconditioner setup is excluded,
 ``main.cc:971-973``).  On a CUDA device a phase is a pair of CUDA events
 on the current stream, read (with a synchronise) only when the durations
-are asked for; on the CPU it is the host clock.
+are asked for; on the CPU, and for the ``HOST`` phases everywhere, it is
+the host clock.
 
-The phases inside the outer solve (``INNER``: the system vmult, the
-preconditioner's basis changes and its block solves) are timed in place,
-around each call, as the reference does in its loops (``main.cc:998-1173``),
+The phases below the step's four (``INNER``) are timed in place, around
+each call, as the reference does in its loops (``main.cc:998-1173``),
 when the timers are made with ``inner=True``; otherwise their spans are
-not recorded and read None.  Recording an event does not wait for the
+not recorded and read None.  They nest as
+
+    total > rhs, outer_solver, solution_update
+    outer_solver > system_vmult, preconditioner_bc, preconditioner_solver,
+                   krylov_vectors, krylov_host
+    preconditioner_solver > mg_smooth, mg_transfer
+    errors (the step's L2/Linf error, after the step)
+
+``krylov_vectors`` is GMRES's own device vector work (Gram–Schmidt,
+normalisation, the Hessenberg column and its host read, the cycle's
+update, the restart residual), ``krylov_host`` its numpy arithmetic
+between a host read and the next launch (the device is idle then),
+``mg_smooth`` / ``mg_transfer`` each V-cycle level's smoothing and its
+residual and grid transfers (``ost``, which has no preconditioner phase,
+nests them in ``outer_solver``).  Recording an event does not wait for the
 device, so a span adds no host synchronisation to a step.
+
+While a ``torch.profiler`` session records, every phase, recorded or not,
+also opens a ``record_function`` range named ``spirk.<phase>`` (NVTX under
+``torch.autograd.profiler.emit_nvtx``), so the program's phases lie on the
+trace's clock beside the device's operations.  With no profiler and the
+inner phases off, entering an inner phase costs a flag read.
 """
 
 from __future__ import annotations
 
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 
 import torch
+from torch.autograd import profiler as _profiler
+
+RANGE_PREFIX = "spirk."
+OFF = nullcontext()
+
+
+def no_phase(name: str):
+    """The phase callable of an untimed solve: enters nothing."""
+    return OFF
 
 
 class PhaseTimers:
@@ -32,37 +61,49 @@ class PhaseTimers:
         "system_vmult",
         "preconditioner_bc",
         "preconditioner_solver",
+        "krylov_vectors",
+        "krylov_host",
+        "mg_smooth",
+        "mg_transfer",
+        "errors",
     )
-    INNER = ("system_vmult", "preconditioner_bc", "preconditioner_solver")
+    INNER = frozenset(PHASES[4:])
+    HOST = frozenset(("krylov_host",))
 
     def __init__(self, device="cpu", inner: bool = False) -> None:
         self.cuda = torch.device(device).type == "cuda"
         self.inner = inner
         self._spans: dict[str, list] = {p: [] for p in self.PHASES}
 
-    @contextmanager
     def phase(self, name: str):
-        if name in self.INNER and not self.inner:
-            yield
-        elif self.cuda:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            try:
-                yield
-            finally:
-                end.record()
-                self._spans[name].append((start, end))
-        else:
-            t0 = time.perf_counter()
-            try:
-                yield
-            finally:
-                self._spans[name].append(time.perf_counter() - t0)
+        """A context manager that times the block as phase ``name``."""
+        profiling = _profiler._is_profiler_enabled
+        if not self.inner and name in self.INNER:
+            return _profiler.record_function(RANGE_PREFIX + name) if profiling else OFF
+        return self._span(name, profiling)
+
+    @contextmanager
+    def _span(self, name: str, profiling: bool):
+        with _profiler.record_function(RANGE_PREFIX + name) if profiling else OFF:
+            if self.cuda and name not in self.HOST:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                try:
+                    yield
+                finally:
+                    end.record()
+                    self._spans[name].append((start, end))
+            else:
+                t0 = time.perf_counter()
+                try:
+                    yield
+                finally:
+                    self._spans[name].append(time.perf_counter() - t0)
 
     def durations(self, name: str) -> list[float]:
         """Seconds of every recorded span of ``name``, in order."""
-        if not self.cuda:
+        if not self.cuda or name in self.HOST:
             return list(self._spans[name])
         out = []
         for start, end in self._spans[name]:
