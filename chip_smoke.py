@@ -103,7 +103,10 @@ Phases; any failure exits non-zero:
    trace, are printed), and a mesh V-cycle at P7's levels asked for pair
    steps launches no K8;
    K3 and K4 also on AMG level tables (AMG_CASES: m = 64 and 16 at p = 1,
-   m = 32 of a Q4 hierarchy and P21's 128 and 64 at p = 4);
+   m = 32 of a Q4 hierarchy and P21's 128 and 64 at p = 4); K10's
+   restriction and prolongation on every level pair of TRANSFER_CASES'
+   hierarchies (degrees 1-4, 1 to 8 lanes, P13's and P21's aggregation),
+   timed at the benchmark cells' finest pairs;
 3b. measurement (``measure_kernels``, MEASURE_CASES): K2 and K4-2D at P3's
    finest shape, K4-2D at m=255, K2 at the 3D shapes of P1, P2 and P4's
    maps, K4 at P1's and P4's finest levels and K9a at P6's and P7's slabs,
@@ -119,7 +122,9 @@ Phases; any failure exits non-zero:
    K3dg at P19's, K3 at P16's 95 and P17's 127 levels, K4 at P16's 191
    and P17's and P19's 255 levels, K9a and K9b on P18's first slab, K5 at
    P20's vmult and at P16's shape (p = 3), K1 at P16's finest level and
-   its route there (K2 and ms_mix_apply_split): device time per
+   its route there (K2 and ms_mix_apply_split), and K10 at the benchmark
+   cells' finest pairs (511 <- 255 one lane at Q4, 255 <- 127 six lanes at
+   Q1) beside its plain version: device time per
    launch from
    ``torch.profiler`` (only sessions in which every timed launch left its
    record, ``profiler_session``), time per call from CUDA events in turns (kernel,
@@ -137,6 +142,8 @@ Phases; any failure exits non-zero:
    (``march_arms``) before the kernels line, not gates;
 4. per path, the kernel arm: the launch counts (all set to 0 just before
    the run, read just after) must equal what the solve structure implies
+   (a 3D kernel V-cycle: one K10 restriction and one prolongation per level
+   pair)
    and include every kernel of the path (REQUIRED: K3dg on P16, P17, P19
    and P21, K1's route on P19 and P21); a RESTARTS path restarts in every
    step after the first and warns where it passed the compact basis; L2
@@ -147,7 +154,7 @@ Phases; any failure exits non-zero:
 5. per path, the plain arm: the same run on the plain torch operators;
    per-step outer and per-stage (per-pair) inner counts within 1 of the
    kernel arm, solutions close (P10: against P4's two arms), the L2 within
-   ARM_L2 (P3) or ARM_L2_SHARE of the kernel arm's;
+   ARM_L2 (P3, P18, P20) or ARM_L2_SHARE of the kernel arm's;
 6. the mutual oracles: P5's, P6's and P9's L2 error within 1% of P2's
    (same q, refinement and tolerances, four different schemes), P8's
    within 3% (the tolerance's solve error, ORACLES), P10's within 1% of P4's; P6's outer count
@@ -311,8 +318,15 @@ PAIR_STEPPED = {"P10": "P4"}
 # spirk and irk, kernels and plain, end 2.28e-6 to 2.36e-6 apart at
 # OuterTolerance 1e-4 (3.1%) and 0.99% apart at 1e-6, in equal counts
 # (scripts/torch_l2_tolerance.py --degree 4 --refinement 5 --stages 4
-# --schemes spirk,irk --slots 8; PERF.md, section 6)
-ARM_L2 = {"P3": 0.05, "P18": 0.05}
+# --schemes spirk,irk --slots 8; PERF.md, section 6).  P20 at 5%, P18's
+# grid and its rationale: at OuterTolerance 1e-4 its f32 arms (kernels,
+# kernels but K10, plain) end up to 1.15% apart over the step sizes 0.08 to
+# 0.12, the arm without K10 1.13% off the plain arm at dt 0.12 and the f32
+# plain arm 3.9% off f64 there; at P18's size irk_batched's arm without
+# K10 reads 1.5-3.0% off the plain arm (--degree 4 --refinement 5 --stages
+# 5 --schemes complex_irk_batched and --stages 4 --schemes irk_batched,
+# --dt 0.08-0.12; PERF.md, section 6)
+ARM_L2 = {"P3": 0.05, "P18": 0.05, "P20": 0.05}
 ARM_L2_SHARE = 0.01
 P18_TWIN_L2 = ARM_L2["P18"]
 # L2 of the first within this share of the second's.  P8 within 3%: at
@@ -326,6 +340,7 @@ ORACLES = (("P5", "P2", 0.01), ("P6", "P2", 0.01), ("P8", "P2", 0.03), ("P9", "P
 _ST = "dealii_spirk_tpu/ops/pallas/stencil.py"
 _SH = "dealii_spirk_tpu/ops/pallas/sharded.py"
 _CS = "dealii_spirk_tpu_torch/csrc/"
+_DENSE = "none (XLA's dense dot: dealii_spirk_tpu/ops/banded.py::apply_dense_1d)"
 KERNELS = {
     # LAUNCHES key: (C source, TPU kernel it replaces)
     "ms_mix_apply": (_CS + "march.cuh", f"{_ST}:2879"),
@@ -342,6 +357,9 @@ KERNELS = {
     "mass_stiffness_apply_halo": (_CS + "march.cuh", f"{_SH}:136"),
     "cheb_iter_halo": (_CS + "march.cuh", f"{_SH}:164"),
     "cheb_iter_dg_halo": (_CS + "march.cuh", f"{_SH}:187"),
+    # K10: no Pallas kernel; XLA's dense dot of the JAX package's transfers
+    "transfer_restrict": (_CS + "transfer.cu", _DENSE),
+    "transfer_prolong": (_CS + "transfer.cu", _DENSE),
 }
 HALO = {  # halo kernel: its whole-field kernel
     "stencil_apply_halo": "stencil_apply",
@@ -468,6 +486,24 @@ AMG_CASES = [
     (P19_STAGES, 4, 6, 128),  # P21's: 255 -> 128 -> 64 -> 32 -> 16 -> 8
     (P19_STAGES, 4, 6, 64),
 ]
+# K10 (restriction of r - A x, prolongation with the correction) on every
+# level pair of a hierarchy, against its plain version: (q, degree,
+# refinement of the space, AMG, timed at the finest pair).  A's finest pair
+# (511 <- 255, one lane, p = 4) and B's (255 <- 127, the six lanes of its
+# pair V-cycle, p = 1), the degree sweep's lanes at p = 2-4, one-lane and
+# 8-lane V-cycles, and the aggregation hierarchies of P13 and P21 (even m)
+TRANSFER_CASES = [
+    (1, 4, 7, False, True),  # irk_q4_p4's V-cycle
+    (6, 1, 8, False, True),  # cirkb_q5_p1's
+    (4, 1, 7, False, False),  # P1
+    (4, 2, 6, False, False),  # P15
+    (4, 3, 6, False, False),  # P16
+    (6, 4, 5, False, False),  # P20
+    (8, 1, 4, False, False),
+    (3, 4, 3, False, False),
+    (4, 1, 7, True, False),  # P13: 127 -> 64 -> 32 -> 16 -> 8
+    (P19_STAGES, 4, 6, True, False),  # P21: 255 -> 128 -> ... -> 8
+]
 # the halo kernels through the sharded layer: (q, refinement, degree, space
 # slot counts, timed at one slab of the first count); one stage per stage
 # row, as P6 and P7 launch them
@@ -590,6 +626,13 @@ MEASURE_CASES = [
     ("stage_mix", 3, 4, 4, 6, 3),
     ("ms_mix_apply_split", 3, 4, 4, 6, 3),
     ("mass_stiffness_apply", 3, 4, 4, 6, 3),
+    # K10 at the cells' finest pairs: irk_q4_p4's (one lane, 511 <- 255,
+    # Q4) and cirkb_q5_p1's (six lanes, 255 <- 127, Q1), beside the plain
+    # version (the dense 1D transfers with their elementwise passes)
+    ("transfer_restrict", 3, 1, 1, 7, 4),
+    ("transfer_prolong", 3, 1, 1, 7, 4),
+    ("transfer_restrict", 3, 6, 6, 8, 1),
+    ("transfer_prolong", 3, 6, 6, 8, 1),
 ]
 # the device kernels of a LAUNCHES key, by name in the profiler (default the
 # key itself): the z march of each mode and its pair form (csrc/march.cuh),
@@ -883,6 +926,7 @@ def check_kernels(device) -> dict:
         del cases, libs
         torch.cuda.empty_cache()
     check_amg_levels(device, report)
+    check_transfer_kernels(device, report)
     for dim, qi, qo, ref, timed in MIX_CASES:
         m = make_level(ref, 1).m
         rng = np.random.default_rng(ref + qi + 10 * qo)
@@ -917,6 +961,52 @@ def check_amg_levels(device, report: dict) -> None:
                             plain(), REL_TOL)
                 report[name]["max_abs_err"] = max(report[name]["max_abs_err"], err)
         del cases, amg
+
+
+def transfer_bound(q: int, m_f: int, m_c: int) -> tuple[float, str]:
+    """(ms, what binds) of K10 on a level pair: two fine passes and one
+    coarse (restriction: rl, ax in, rc out; prolongation: x, xc in, x' out)
+    over the HBM rate; its FMAs (at most 15 per output per axis, a 1e-2 share
+    of the f32 peak's time) never bind."""
+    return 4 * q * (2 * m_f**3 + m_c**3) / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def check_transfer_kernels(device, report: dict) -> None:
+    """K10 on every level pair of TRANSFER_CASES' hierarchies (each pair
+    admitted by ``transfer_runs``): ``restrict_residual`` and
+    ``prolong_add`` against their plain versions (the dense 1D transfers
+    and the two elementwise passes); at a timed case's finest pair, each
+    beside its plain version and its bound."""
+    from dealii_spirk_tpu_torch.fem.grid import make_space
+    from dealii_spirk_tpu_torch.ops.cuda import transfer as tr
+    from dealii_spirk_tpu_torch.solvers.amg import build_amg_data
+    from dealii_spirk_tpu_torch.solvers.gmg import build_gmg_data
+
+    for q, p, ref, amg, timed in TRANSFER_CASES:
+        build = build_amg_data if amg else build_gmg_data
+        gmg = build(make_space(3, p, ref), torch.float32, device)
+        gen = device_generator(device, 1000 * ref + 10 * p + q)
+        for l, runs in enumerate(gmg.transfers):
+            if not runs.fits:
+                raise AssertionError(f"p={p} r={ref} pair {l}: K10 does not take its P")
+            m_f, m_c = runs.P.shape
+            at = f"3D p={p} m={m_f} <- {m_c} q={q}" + (" AMG" if amg else "")
+            rl, ax, x = (uniform_field((q, m_f, m_f, m_f), -1.0, 1.0, device, gen)
+                         for _ in range(3))
+            xc = uniform_field((q, m_c, m_c, m_c), -1.0, 1.0, device, gen)
+            calls = {
+                "transfer_restrict": (lambda: tr.restrict_residual(runs, rl, ax),
+                                      lambda: tr.restrict_residual_ref(runs.P, rl, ax)),
+                "transfer_prolong": (lambda: tr.prolong_add(runs, x, xc),
+                                     lambda: tr.prolong_add_ref(runs.P, x, xc)),
+            }
+            for name, (kern, plain) in calls.items():
+                err = _hold(f"kernel {name:24s} {at}", kern(), plain(), REL_TOL)
+                report[name]["max_abs_err"] = max(report[name]["max_abs_err"], err)
+                if timed and l == len(gmg.transfers) - 1:
+                    _time(report, name, at, kern, plain, None, transfer_bound(q, m_f, m_c))
+            del rl, ax, x, xc, calls
+            torch.cuda.empty_cache()
 
 
 def check_halo_kernels(device, report: dict) -> None:
@@ -1249,6 +1339,33 @@ def _rotating(fn, sets: list):
     return call
 
 
+def _transfer_setup(key: str, q: int, ref: int, p: int, device, field) -> dict:
+    """K10's MEASURE_CASES entry at the finest pair of the refinement-``ref``
+    Q``p`` hierarchy: its library call is its plain version (no one PyTorch
+    call computes a transfer)."""
+    from dealii_spirk_tpu_torch.fem.grid import make_space
+    from dealii_spirk_tpu_torch.ops.cuda import transfer as tr
+    from dealii_spirk_tpu_torch.solvers.gmg import build_gmg_data
+
+    runs = build_gmg_data(make_space(3, p, ref), torch.float32, device).transfers[-1]
+    m_f, m_c = runs.P.shape
+    if key == "transfer_restrict":
+        kern = lambda rl, ax: tr.restrict_residual(runs, rl, ax)  # noqa: E731
+        plain = lambda rl, ax: tr.restrict_residual_ref(runs.P, rl, ax)  # noqa: E731
+        make = lambda: (field(q, m_f, m_f, m_f), field(q, m_f, m_f, m_f))  # noqa: E731
+    else:
+        kern = lambda x, xc: tr.prolong_add(runs, x, xc)  # noqa: E731
+        plain = lambda x, xc: tr.prolong_add_ref(runs.P, x, xc)  # noqa: E731
+        make = lambda: (field(q, m_f, m_f, m_f), field(q, m_c, m_c, m_c))  # noqa: E731
+    return {
+        "kern": kern, "plain": plain, "lib": plain, "make": make,
+        "bytes": 4 * q * (2 * m_f**3 + m_c**3),
+        "at": f"3D p={p} m={m_f} <- {m_c} q={q}",
+        "library": "the plain version (dense tensordot + movedim per axis)",
+        "bound": transfer_bound(q, m_f, m_c),
+    }
+
+
 def _measure_setup(key: str, dim: int, qi: int, qo: int, ref: int, p: int, device) -> dict:
     """One MEASURE_CASES entry: the kernel call, its plain version and its
     library call (None where no PyTorch call computes the function: above
@@ -1304,6 +1421,8 @@ def _measure_setup(key: str, dim: int, qi: int, qo: int, ref: int, p: int, devic
             "at": f"{dim}D p={p} m={m} q={qi}", "library": "grouped conv2d" if q1 else "none",
             "bound": bound(key, qi, qo, m**dim, p, dim),
         }
+    if key in ("transfer_restrict", "transfer_prolong"):
+        return _transfer_setup(key, qi, ref, p, device, field)
     if key == "cheb_pair_dg":
         # K8 beside the two K3dg launches that compute the same two steps
         # (``twin``: other kernels of the port, not a library call)
@@ -2109,7 +2228,8 @@ def bench_launches(gmg, dim: int, label: str, iterations: int, solves: int) -> d
     and a V-cycle ``_smoother_launches``' on all lanes at once; in
     ``subgroups8`` (an (8, 1) slot mesh) every slot launches its own: the
     operator K9a (2D: K4-2D), and a one-lane V-cycle whose levels that
-    ``sharded_levels`` splits take the halo forms (K9c or K9d, and K9a)."""
+    ``sharded_levels`` splits take the halo forms (K9c or K9d, and K9a)
+    and move to the level below by the sharded z transfers, no K10."""
     from types import SimpleNamespace
 
     from dealii_spirk_tpu_torch.gmg_bench import MODES
@@ -2131,7 +2251,7 @@ def bench_launches(gmg, dim: int, label: str, iterations: int, solves: int) -> d
         one = SimpleNamespace(dim=dim, cheb_pair=False, gmg=SimpleNamespace(level_ops=(None, ops)))
         _smoother_launches(one, n_comp * n_vcycle, level)
         for key, n in level.items():
-            if n:
+            if n and not (split[l] and key.startswith("transfer_")):
                 want[key + "_halo" if split[l] else key] += n
     return want
 
@@ -2140,8 +2260,9 @@ def _smoother_launches(scheme, n_vcycle: int, want: dict) -> None:
     """Per V-cycle, on each smoothed level: 3D two smooths of 4 fused
     Chebyshev steps (K3, or K3dg on ``cheb_diag_level`` levels, or with
     ``cheb_pair`` 2 K8 pair steps on ``cheb_pair_level`` levels) plus the
-    post-smooth entry and restriction residuals (K4); 2D the 8 Chebyshev
-    steps, each one K4-2D apply, plus those two residuals."""
+    post-smooth entry and restriction residuals (K4), and the transfers to
+    the level below, one K10 restriction and one prolongation; 2D the 8
+    Chebyshev steps, each one K4-2D apply, plus those two residuals."""
     from dealii_spirk_tpu_torch.solvers.gmg import cheb_diag_level, cheb_pair_level
 
     for ops in scheme.gmg.level_ops[1:]:
@@ -2152,6 +2273,8 @@ def _smoother_launches(scheme, n_vcycle: int, want: dict) -> None:
                 key = "cheb_iter_dg" if cheb_diag_level(ops.m, 3) else "cheb_iter"
                 want[key] += 8 * n_vcycle
             want["stencil_apply"] += 2 * n_vcycle
+            want["transfer_restrict"] += n_vcycle
+            want["transfer_prolong"] += n_vcycle
         else:
             want["stencil_apply_2d"] += 10 * n_vcycle
 

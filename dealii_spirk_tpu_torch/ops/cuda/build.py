@@ -61,6 +61,10 @@ SIGNATURES = {
     "spirk_ms_mix_apply_split": (_P,) * 5 + (_F,) + (_I,) * 4 + (_P,),
     # W, out, mat, q_out, q_in, n, stream
     "spirk_stage_mix": (_P, _P, _P, _I, _I, ctypes.c_longlong, _P),
+    # K10 (csrc/transfer.cu): fine, other, out, run starts, run weights, q,
+    # m_f, m_c, run width, chunk, stream (ops/cuda/transfer.py)
+    "spirk_transfer_restrict": (_P,) * 5 + (_I,) * 5 + (_P,),
+    "spirk_transfer_prolong": (_P,) * 5 + (_I,) * 5 + (_P,),
 }
 
 # diagnostics that no path launches (no LAUNCHES count): the arms of K3,

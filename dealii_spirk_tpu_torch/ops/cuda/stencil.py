@@ -57,6 +57,10 @@ block counts under ``<key>_2d``), with the Pallas kernels they replace
   (``mass_laplace.slab_ops``: its first global plane ``z_off``).  They
   replace ``dealii_spirk_tpu/ops/pallas/sharded.py``'s ``halo_z=True``
   forms and equal the whole-field kernels bit for bit.
+
+K10's grid transfers (``transfer_restrict``, ``transfer_prolong``) count
+here too; their wrappers are in ``transfer.py`` (no TPU kernel: the JAX
+package's transfers are XLA's dense dot).
 """
 
 from __future__ import annotations
@@ -130,6 +134,8 @@ LAUNCHES = {
     "mass_stiffness_apply_halo": 0,
     "cheb_iter_halo": 0,
     "cheb_iter_dg_halo": 0,
+    "transfer_restrict": 0,
+    "transfer_prolong": 0,
 }
 
 

@@ -26,7 +26,10 @@ comes in the same ``GMGData`` and runs through the same code, kernels
 included.  The sequential ``irk`` scheme
 runs it on one stage at a time with ``stage_prec``.  Grid transfers are
 dense 1D contractions (``apply_dense_1d``) and the coarse solve a batched
-dense inverse, as the JAX package leaves both to XLA.
+dense inverse, as the JAX package leaves both to XLA; the 3D kernel
+V-cycle takes each level's residual restriction and its prolongation with
+the correction as one K10 launch each (``ops/cuda/transfer.py``), in the
+dense contractions' order of sums.
 
 With ``mesh=`` the V-cycle runs on a (stage, space) slot mesh (the JAX
 package's ``vcycle_canon(mesh=)``): ``scatter_prec`` splits the per-level
@@ -45,7 +48,7 @@ reference's semantics there.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, fields
+from dataclasses import dataclass, field, fields
 from typing import Callable
 
 import numpy as np
@@ -54,9 +57,9 @@ import torch
 from ..fem.grid import Space
 from ..ops.cuda import sharded as shk
 from ..ops.cuda import stencil as st
+from ..ops.cuda import transfer as tr
 from ..ops.mass_laplace import LevelOps, apply_shifted_batched, level_ops, operator_diagonal
 from ..ops.banded import apply_dense_1d
-from ..ops.transfer import prolong, restrict
 from ..parallel.mesh import SlotMesh
 from ..parallel.sharding import ShardedBlock, canon_shardable, scatter, send, z_partition
 from ..utils.timer import no_phase
@@ -118,6 +121,12 @@ class GMGData:
     prolongs: tuple[torch.Tensor, ...]  # [l]: level l -> level l+1
     coarse_mass: torch.Tensor  # dense coarsest-level dim-D mass matrix
     coarse_stiff: torch.Tensor
+    # [l]: prolongs[l] with K10's row-run form (``transfer_runs``), built
+    # with the hierarchy
+    transfers: tuple[tr.TransferRuns, ...] = field(init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        object.__setattr__(self, "transfers", tuple(tr.transfer_runs(P) for P in self.prolongs))
 
 
 @dataclass(frozen=True)
@@ -475,12 +484,13 @@ def vcycle(
             return _coarse_solve(prec, rl)
         with phase("mg_smooth"):
             x = smooth(l, rl)
+        P, runs = gmg.prolongs[l - 1], gmg.transfers[l - 1]
         with phase("mg_transfer"):
-            res = rl - apply_fn(gmg.level_ops[l], a, b, x)
-            rc = restrict(gmg.prolongs[l - 1], res, dim)
+            ax = apply_fn(gmg.level_ops[l], a, b, x)
+            rc = tr.restrict_residual(runs, rl, ax) if fused else tr.restrict_residual_ref(P, rl, ax)
         xc = solve(l - 1, rc)
         with phase("mg_transfer"):
-            x = x + prolong(gmg.prolongs[l - 1], xc, dim)
+            x = tr.prolong_add(runs, x, xc) if fused else tr.prolong_add_ref(P, x, xc)
         with phase("mg_smooth"):
             return smooth(l, rl, x0=x)
 

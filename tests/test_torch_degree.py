@@ -43,6 +43,7 @@ from dealii_spirk_tpu_torch.runner import run_config as trun_config
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
+from test_torch_transfer import count_transfers  # noqa: E402
 from test_torch_setup import same_tables_route  # noqa: E402, F401 (autouse: one tables route)
 
 REF = 2
@@ -84,6 +85,7 @@ def count_wrappers(mp: pytest.MonkeyPatch) -> dict:
             return _wrapper(*args)
 
         mp.setattr(tst, name, counted)
+    count_transfers(mp, calls)
     return calls
 
 

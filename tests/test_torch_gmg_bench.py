@@ -41,6 +41,7 @@ from dealii_spirk_tpu_torch.solvers import gmg as tgmg
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
+from test_torch_transfer import count_transfers  # noqa: E402
 
 CLI_CASES = {
     "2D r3-4": ["--dim", "2", "--min-ref", "3", "--max-ref", "4"],
@@ -145,6 +146,7 @@ def count_wrappers(monkeypatch) -> dict:
             return _wrapper(*args)
 
         monkeypatch.setattr(tst, name, counted)
+    count_transfers(monkeypatch, calls)
     return calls
 
 

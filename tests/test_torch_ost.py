@@ -35,6 +35,7 @@ from dealii_spirk_tpu_torch.schemes.ost import OneStepTheta
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
+from test_torch_transfer import count_transfers  # noqa: E402
 
 RTOL = 1e-10
 BASE = {
@@ -116,6 +117,7 @@ def count_wrappers(monkeypatch) -> dict:
             return _wrapper(*args)
 
         monkeypatch.setattr(tst, name, counted)
+    count_transfers(monkeypatch, calls)
     return calls
 
 
